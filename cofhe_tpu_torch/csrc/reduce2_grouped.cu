@@ -1,122 +1,150 @@
 // K3: batched grouped rho-descent of quadratic forms on Hopper (sm_90a).
 //
 // Replaces the XLA while loop of cofhe_tpu/ops/forms2.py::CG.reduce2_grouped
-// (not a Pallas kernel in the JAX package; ported here because in eager
-// PyTorch its ~90 iterations of ~1000 small ops dominate every compose).
-// Same algorithm as the plain version cofhe_tpu_torch/ops/forms2.py::
-// grouped_rho_loop: per group, up to 3 normalization / rho quotients are
-// simulated on (mant f32, top) estimates of a and b (c's estimate comes from
-// the invariant c = (b^2 + |Delta|) / 4a), accumulating a unimodular
-// M = [[p, q], [r, s]] with entries below 2^12; M is then applied once to
-// the redundant limbs of (a, b, c) with 13+12-bit split coefficients.
-// The output is the redundant (a, b, c) after the loop; the exact tail
-// (canonicalize + forms.reduce_batch) stays in torch.
+// (not a Pallas kernel in the JAX package; in eager PyTorch its groups of
+// small ops dominated every compose). It computes the plain version
+// cofhe_tpu_torch/ops/forms2.py::grouped_rho_loop_wide and gives the same
+// limbs and group counts: per group, normalization / rho quotients are
+// simulated on f64 estimates of a and b (rl.value_est_wide, held at a's
+// scale for the whole group; c from the invariant c = (b^2 + |Delta|) / 4a)
+// until the unimodular M = [[p, q], [r, s]] would pass its 2^22 entry
+// budget, the form looks reduced, or kSimMax steps; M is then applied once
+// to the redundant limbs of (a, b, c) with one 64-bit product per
+// coefficient (coefficients below 2^45, limbs below 2^15.01, three-term
+// sums below 2^62), the sums spread back into 16-bit limbs and one carry
+// pass run. The exact tail (canonicalize + forms.reduce_batch) stays in
+// torch and gives the unique reduced form.
 //
-// What bounds it on this card: integer operations, ~(9 products + 3 sums +
-// 6 carry passes + 2 value estimates) per limb and group for ~bits/12
-// groups; the bytes (3 rows in, 3 rows out) are small beside them. The
-// design keeps a, b, c, their <<13 copies and the new rows in registers, one
-// warp per lane with its limbs blocked over the 32 threads; the scalar
-// simulation runs redundantly on every thread (warp-uniform estimates), and
-// each lane leaves its loop as soon as its flags clear. Later work: fusing
-// the exact tail and the compose before it (ROADMAP K6).
+// What bounds it on this card: the count of integer operations is 9 int64
+// products and sums, a 4-digit spread and a carry pass per group and limb,
+// ~3x fewer groups than a 2^12-budget loop (25 against 73 at
+// sec=128). What holds it back is the scalar simulation between groups:
+// ~10 dependent steps of f64 arithmetic with one or two IEEE divisions
+// each, which at the main path's 128-256 lanes (32-64 of 132 SMs) is the
+// serial latency of the loop, and at 16384 lanes costs as many warp
+// instructions as the apply. The design keeps that chain short: flags by
+// products and comparisons (no logarithms), no renormalization inside a
+// group, the cap division only when the budget is spent, and after a rho
+// the quotient's division issued beside the one that gives the new a.
+// Every thread of the warp runs the simulation on the same doubles: a warp
+// instruction costs one issue whatever its active threads, so running it on
+// one thread and broadcasting M would add a shuffle and save nothing; a
+// variant that simulated a block's lanes side by side in warp 0 and handed
+// M over shared memory measured slower (its barriers serialize simulation
+// and apply, and it needed 128 registers). Tensor cores and TMA do not fit:
+// the work is a different scalar times each lane's rows (no tile for
+// wgmma), and the rows are read once (their bytes are under 1% of the
+// bound). Launch shape: four lanes a block. At 128-256 lanes a warp's
+// loop is latency bound, and one, two or four lanes a block measured
+// within 3% of each other on the main path's operands (PERF.md), so the
+// shape is fixed.
 
 #include "warp_limbs.cuh"
 
 namespace {
 
-constexpr int kLim = 4096;  // 2^12 matrix-entry bound
-
-struct Est {
-  float m;
-  int t;
-};
-
-// rl.log2f_i: floor-ish log2 |m| via the exponent bits; 0 -> -200.
-__device__ __forceinline__ int log2f_i(float m) {
-  if (m == 0.0f) return -200;
-  return (__float_as_int(fabsf(m)) >> 23) - 127;
-}
-
-// forms2._renorm_est
-__device__ __forceinline__ Est renorm(float m, int t) {
-  if (m == 0.0f) return {m, t};
-  int sh = log2f_i(m) >> 4;
-  sh = sh < -4 ? -4 : (sh > 4 ? 4 : sh);
-  return {m * wl::pow2f(-16 * sh), t + sh};
-}
+constexpr double kLim = 4194304.0;  // 2^22 matrix-entry budget
+constexpr int kSimMax = 12;          // simulated quotients a group at most
+constexpr int kWarps = 4;            // lanes (warps) a block
+// forms2.UP, DOWN, FREAK: the flags' margins 2^(+-0.25), the freak bound
+constexpr double kUp = 1.189207115002721;
+constexpr double kDown = 0.8408964152537145;
+constexpr double kFreak = 33554432.0;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// forms2._c_est: c = (b^2 + |Delta|) / (4a) from the estimates of a and b.
-__device__ __forceinline__ Est c_est(float ma, int ta, float mb, int tb,
-                                     float dD_mant, int dD_top) {
-  int t2b = 2 * tb;
-  int tbig = t2b > dD_top ? t2b : dD_top;
-  float m1 = (mb * mb) * wl::pow2f(clampi(16 * (t2b - tbig), -126, 0));
-  float m2 = dD_mant * wl::pow2f(clampi(16 * (dD_top - tbig), -126, 0));
-  float mc = (m1 + m2) / fmaxf(4.0f * ma, 1e-30f);
-  return renorm(mc, tbig - ta);
+// forms2._scaled_wide: b and |Delta| at a's scale 2^(16 ta)
+__device__ __forceinline__ void scaled(double mb, int ta, int tb,
+                                       double dD_mant, int dD_top, double& sb,
+                                       double& dp) {
+  sb = mb * wl::pow2d(clampi(16 * (tb - ta), -1100, 1000));
+  dp = dD_mant * wl::pow2d(clampi(16 * (dD_top - 2 * ta), -1100, 1000));
 }
 
-// forms2.CG._flags on bit estimates: (need_norm, need_rho)
-__device__ __forceinline__ void flags(float ma, int ta, float mb, int tb,
-                                      float mc, int tc, bool& need_norm,
-                                      bool& need_rho) {
-  float bitsA = wl::bits_est(ma, ta);
-  float bitsB = wl::bits_est(mb, tb);
-  float bitsC = wl::bits_est(mc, tc);
-  bool raw_norm = bitsB > bitsA + 0.25f;
-  bool freak = bitsB - bitsA > 25.0f;
-  need_rho = !raw_norm && bitsC < bitsA - 0.25f;
-  need_norm = raw_norm && !freak;
+// forms2._flags_wide: (need_norm, need_rho) and num = b^2 + |Delta|, by
+// products and comparisons only
+__device__ __forceinline__ void flags(double sa, double sb, double dp,
+                                      bool& need_norm, bool& need_rho,
+                                      double& num) {
+  const double ab = fabs(sb);
+  const bool raw = ab > sa * kUp;
+  num = sb * sb + dp;
+  need_rho = !raw && num < 4.0 * sa * sa * kDown;
+  need_norm = raw && !(ab > sa * kFreak);
 }
 
-__device__ __forceinline__ int floordiv(int a, int b) {
-  int q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
-
+// out = carry_pass(spread(ca * a + cb * b + cc * c)) with int64 sums
 template <int NPT>
-__device__ __forceinline__ void shl13(const int (&x)[NPT], int (&y)[NPT],
+__device__ __forceinline__ void xform(long long ca, long long cb, long long cc,
+                                      const int (&a)[NPT], const int (&b)[NPT],
+                                      const int (&c)[NPT], int (&out)[NPT],
                                       int lane, int L) {
-#pragma unroll
-  for (int j = 0; j < NPT; j++) y[j] = (int)((uint32_t)x[j] << 13);
-  wl::carry_pass<NPT>(y, lane, L);
-}
-
-// out = carry_pass(sum over (a, b, c) of coef_lo * v + coef_hi * v13)
-template <int NPT>
-__device__ __forceinline__ void xform(int ca, int cb, int cc,
-                                      const int (&a)[NPT], const int (&a13)[NPT],
-                                      const int (&b)[NPT], const int (&b13)[NPT],
-                                      const int (&c)[NPT], const int (&c13)[NPT],
-                                      int (&out)[NPT], int lane, int L) {
-  int sa = wl::sgn(ca), ua = ca < 0 ? -ca : ca;
-  int sb = wl::sgn(cb), ub = cb < 0 ? -cb : cb;
-  int sc = wl::sgn(cc), uc = cc < 0 ? -cc : cc;
-  int alo = (ua & 0x1FFF) * sa, ahi = (ua >> 13) * sa;
-  int blo = (ub & 0x1FFF) * sb, bhi = (ub >> 13) * sb;
-  int clo = (uc & 0x1FFF) * sc, chi = (uc >> 13) * sc;
-  // each product is below 2^29; the six-term sum wraps like int32 tensors
+  long long s[NPT];
 #pragma unroll
   for (int j = 0; j < NPT; j++)
-    out[j] = (int)((uint32_t)(alo * a[j]) + (uint32_t)(ahi * a13[j]) +
-                   (uint32_t)(blo * b[j]) + (uint32_t)(bhi * b13[j]) +
-                   (uint32_t)(clo * c[j]) + (uint32_t)(chi * c13[j]));
+    s[j] = ca * (long long)a[j] + cb * (long long)b[j] + cc * (long long)c[j];
+  wl::spread_carry<NPT, 4>(s, out, lane, L);
   wl::carry_pass<NPT>(out, lane, L);
 }
 
+// One group's scalar simulation (forms2.grouped_rho_loop_wide's inner
+// loop) from a's scale: returns M = [[P, Q], [R, S]].
+__device__ __forceinline__ void simulate(double sa, double sb, double dp,
+                                         long long (&m)[4]) {
+  double num;
+  double p = 1.0, r = 0.0, qq = 0.0, ss = 1.0;
+  for (int step = 0; step < kSimMax; step++) {
+    bool need_norm, need_rho;
+    flags(sa, sb, dp, need_norm, need_rho, num);
+    if (!(need_norm || need_rho)) break;
+    // q = round(b / 2a) of the form after the optional rho, clipped to
+    // what the budget leaves once it would pass it (the only step that
+    // divides for the cap). After a rho, q = -2 a b / (b^2 + |Delta|):
+    // its division does not wait for the one that gives the new a.
+    double man = sa, mbn = sb, qreal;
+    if (need_rho) {  // (a, b, c) -> (c, -b, a); M times [[0,-1],[1,0]]
+      man = num / fmax(4.0 * sa, 1e-300);
+      qreal = -2.0 * sa * sb / fmax(num, 1e-300);
+      mbn = -sb;
+      const double t0 = p, t1 = r;
+      p = qq;
+      qq = -t0;
+      r = ss;
+      ss = -t1;
+    } else {
+      qreal = sb / fmax(2.0 * sa, 1e-300);
+    }
+    const double qround = rint(qreal);
+    const double col1 = fmax(fmax(fabs(p), fabs(r)), 1.0);
+    const double col2 = fmax(fabs(qq), fabs(ss));
+    const bool spent = !(fabs(qround) * col1 + col2 <= kLim);
+    double qf = qround;
+    if (spent) {
+      const double qcap = floor((kLim - col2) / col1);
+      qf = fmin(fmax(qround, -qcap), qcap);
+    }
+    sb = mbn - 2.0 * qf * man;
+    sa = man;
+    qq = qq - qf * p;
+    ss = ss - qf * r;
+    if (spent) break;
+  }
+  m[0] = (long long)p;
+  m[1] = (long long)r;
+  m[2] = (long long)qq;
+  m[3] = (long long)ss;
+}
+
 template <int NPT>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kWarps * 32)
     reduce2_grouped_kernel(const int* __restrict__ a_in,
                            const int* __restrict__ b_in,
                            const int* __restrict__ c_in,
                            int* __restrict__ a_out, int* __restrict__ b_out,
                            int* __restrict__ c_out, int* __restrict__ iters_out,
-                           int B, int L, float dD_mant, int dD_top,
+                           int B, int L, double dD_mant, int dD_top,
                            int red_iters) {
   const int row = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
@@ -133,78 +161,37 @@ __global__ void __launch_bounds__(128)
     wl::carry_pass<NPT>(b, lane, L);
     wl::carry_pass<NPT>(c, lane, L);
   }
-  float ma, mb;
+  double sa, mb, sb, dp, num;
   int ta, tb;
-  wl::value_est<NPT>(a, lane, ma, ta);
-  wl::value_est<NPT>(b, lane, mb, tb);
-  bool nn, nr;
-  Est ce = c_est(ma, ta, mb, tb, dD_mant, dD_top);
-  flags(ma, ta, mb, tb, ce.m, ce.t, nn, nr);
-  bool on = nn || nr;
+  bool on, nn, nr;
+  wl::value_est_wide<NPT>(a, lane, sa, ta);
+  wl::value_est_wide<NPT>(b, lane, mb, tb);
+  scaled(mb, ta, tb, dD_mant, dD_top, sb, dp);
+  flags(sa, sb, dp, nn, nr, num);
+  on = nn || nr;
 
   int it = 0;
   for (; it < red_iters && on; it++) {
-    // ---- scalar simulation of up to 3 quotients (warp-uniform)
-    int p = 1, r = 0, qq = 0, ss = 1;
-    float sma = ma, smb = mb;
-    int sta = ta, stb = tb;
-#pragma unroll
-    for (int step = 0; step < 3; step++) {
-      Est e = c_est(sma, sta, smb, stb, dD_mant, dD_top);
-      bool need_norm, need_rho;
-      flags(sma, sta, smb, stb, e.m, e.t, need_norm, need_rho);
-      bool act = need_norm || need_rho;
-      bool do_rho = act && need_rho;
-      float man = do_rho ? e.m : sma;
-      int tan = do_rho ? e.t : sta;
-      float mbn = do_rho ? -smb : smb;
-      // matrix right-multiplied by rho = [[0,-1],[1,0]]
-      int p2 = do_rho ? qq : p;
-      int qq2 = do_rho ? -p : qq;
-      int r2 = do_rho ? ss : r;
-      int ss2 = do_rho ? -r : ss;
-      // digit q ~ b/2a, clipped to the remaining matrix budget
-      float ratio = mbn / fmaxf(2.0f * man, 1e-30f);
-      float scale = wl::pow2f(clampi(16 * (stb - tan), -126, 60));
-      int col1 = max(abs(p2), abs(r2));
-      int col2 = max(abs(qq2), abs(ss2));
-      float qcap = (float)floordiv(kLim - col2, max(col1, 1));
-      float qf = fminf(fmaxf(rintf(ratio * scale), -qcap), qcap);
-      if (!act) qf = 0.0f;
-      int qi = (int)qf;
-      // b <- b - 2 q a at b's scale, renormalized
-      float inv = wl::pow2f(clampi(16 * (tan - stb), -126, 60));
-      Est nb = renorm(mbn - 2.0f * qf * man * inv, stb);
-      smb = nb.m;
-      stb = nb.t;
-      sma = man;
-      sta = tan;
-      p = p2;
-      r = r2;
-      qq = qq2 - qi * p2;
-      ss = ss2 - qi * r2;
-    }
+    // every thread of the warp runs the lane's simulation on the same
+    // doubles: one warp instruction either way, and no broadcast
+    long long m[4];
+    simulate(sa, sb, dp, m);
+    const long long P = m[0], R = m[1], Q = m[2], S = m[3];
     // ---- apply M once to the limbs
-    int a13[NPT], b13[NPT], c13[NPT];
-    shl13<NPT>(a, a13, lane, L);
-    shl13<NPT>(b, b13, lane, L);
-    shl13<NPT>(c, c13, lane, L);
     int na[NPT], nb_[NPT], nc[NPT];
-    xform<NPT>(p * p, p * r, r * r, a, a13, b, b13, c, c13, na, lane, L);
-    xform<NPT>(2 * p * qq, p * ss + qq * r, 2 * r * ss, a, a13, b, b13, c,
-               c13, nb_, lane, L);
-    xform<NPT>(qq * qq, qq * ss, ss * ss, a, a13, b, b13, c, c13, nc, lane,
-               L);
+    xform<NPT>(P * P, P * R, R * R, a, b, c, na, lane, L);
+    xform<NPT>(2 * P * Q, P * S + Q * R, 2 * R * S, a, b, c, nb_, lane, L);
+    xform<NPT>(Q * Q, Q * S, S * S, a, b, c, nc, lane, L);
 #pragma unroll
     for (int j = 0; j < NPT; j++) {
       a[j] = na[j];
       b[j] = nb_[j];
       c[j] = nc[j];
     }
-    wl::value_est<NPT>(a, lane, ma, ta);
-    wl::value_est<NPT>(b, lane, mb, tb);
-    ce = c_est(ma, ta, mb, tb, dD_mant, dD_top);
-    flags(ma, ta, mb, tb, ce.m, ce.t, nn, nr);
+    wl::value_est_wide<NPT>(a, lane, sa, ta);
+    wl::value_est_wide<NPT>(b, lane, mb, tb);
+    scaled(mb, ta, tb, dD_mant, dD_top, sb, dp);
+    flags(sa, sb, dp, nn, nr, num);
     on = nn || nr;
   }
   if (iters_out != nullptr && lane == 0) iters_out[row] = it;
@@ -215,11 +202,10 @@ __global__ void __launch_bounds__(128)
 
 template <int NPT>
 void launch(const int* a, const int* b, const int* c, int* ao, int* bo,
-            int* co, int* iters, int B, int L, float dD_mant, int dD_top,
+            int* co, int* iters, int B, int L, double dD_mant, int dD_top,
             int red_iters, cudaStream_t stream) {
-  const int threads = 128;  // 4 lanes (warps) per block
-  const int blocks = (B + 3) / 4;
-  reduce2_grouped_kernel<NPT><<<blocks, threads, 0, stream>>>(
+  const int blocks = (B + kWarps - 1) / kWarps;
+  reduce2_grouped_kernel<NPT><<<blocks, kWarps * 32, 0, stream>>>(
       a, b, c, ao, bo, co, iters, B, L, dD_mant, dD_top, red_iters);
 }
 
@@ -233,15 +219,15 @@ void launch(const int* a, const int* b, const int* c, int* ao, int* bo,
 extern "C" int reduce2_grouped_launch(const int* a, const int* b,
                                       const int* c, int* ao, int* bo, int* co,
                                       int* iters, int B, int L, int dD_top,
-                                      int red_iters, float dD_mant,
+                                      int red_iters, double dD_mant,
                                       void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch ((L + 31) / 32) {
-#define K3_CASE(n)                                                         \
-  case n:                                                                  \
-    launch<n>(a, b, c, ao, bo, co, iters, B, L, dD_mant, dD_top, red_iters, \
-              s);                                                          \
+#define K3_CASE(n)                                                       \
+  case n:                                                                \
+    launch<n>(a, b, c, ao, bo, co, iters, B, L, dD_mant, dD_top,         \
+              red_iters, s);                                             \
     break;
     K3_CASE(1) K3_CASE(2) K3_CASE(3) K3_CASE(4) K3_CASE(5) K3_CASE(6)
     K3_CASE(7) K3_CASE(8) K3_CASE(9)

@@ -27,9 +27,6 @@
 
 namespace wl {
 
-__device__ __forceinline__ int shl(int x, int s) {
-  return (int)((uint32_t)x << s);
-}
 __device__ __forceinline__ int mulw(int a, int b) {
   return (int)((uint32_t)a * (uint32_t)b);
 }
@@ -244,17 +241,101 @@ __device__ __forceinline__ void value_est(const int (&x)[NPT], int lane,
   mant = s;
 }
 
-// Limb i <- limb i+1; zero enters at the top limb W-1 (rl.mod_topdown's
-// shift_down on the W-limb buffer).
+// ---- 64-bit steering (K3) and int64 limb sums (K2, K3)
+
+// 2^e as f64 from its exponent bits; 0 below -1022, clamped at 1023
+// (rl.pow2d).
+__device__ __forceinline__ double pow2d(long long e) {
+  if (e < -1022) return 0.0;
+  if (e > 1023) e = 1023;
+  return __longlong_as_double((e + 1023) << 52);
+}
+
+// rl.value_est_wide: value ~= mant * 2^(16 top) from the top four limbs,
+// the top three summed exactly in int64 and the fourth added in f64, so
+// every thread (and the plain version) gets the same double.
 template <int NPT>
-__device__ __forceinline__ void shift_down1(int (&x)[NPT], int lane, int W) {
-  int nxt = __shfl_down_sync(WL_FULL, x[0], 1);
+__device__ __forceinline__ void value_est_wide(const int (&x)[NPT], int lane,
+                                               double& mant, int& top) {
+  int t = 0;
+#pragma unroll
+  for (int j = 0; j < NPT; j++)
+    if (x[j] != 0) t = lane * NPT + j;
+  top = __reduce_max_sync(WL_FULL, t);
+  long long p = 0;
+  int q = 0;
 #pragma unroll
   for (int j = 0; j < NPT; j++) {
-    int i = lane * NPT + j;
-    int v = j + 1 < NPT ? x[j + 1] : nxt;
-    x[j] = i + 1 < W ? v : 0;
+    int k = top - (lane * NPT + j);
+    if (k >= 0 && k <= 2) p += (long long)x[j] * (1LL << (16 * (2 - k)));
+    if (k == 3) q = x[j];
   }
+  const int lo = top >= 3 ? top - 3 : 0;
+  long long ps = 0;
+  int qs = 0;
+  for (int src = lo / NPT; src <= top / NPT; src++) {  // warp-uniform
+    ps += __shfl_sync(WL_FULL, p, src);
+    qs += __shfl_sync(WL_FULL, q, src);
+  }
+  mant = ((double)ps + (double)qs * 1.52587890625e-05) *
+         2.3283064365386962890625e-10;
+}
+
+// rl.spread_carry: int64 limb sums -> int32 limbs of the same value. Each
+// sum splits into ND balanced 16-bit digits (the last takes the rest) and
+// digit k moves k limbs up (a shuffle from the thread below where it
+// crosses one), so limbs below the top land within ND * 2^15; the top limb
+// W-1 keeps everything that would pass it.
+template <int NPT, int ND>
+__device__ __forceinline__ void spread_carry(const long long (&s)[NPT],
+                                             int (&out)[NPT], int lane,
+                                             int W) {
+  int e[ND][NPT];
+#pragma unroll
+  for (int j = 0; j < NPT; j++) {
+    const int i = lane * NPT + j;
+    long long r = s[j];
+#pragma unroll
+    for (int k = 0; k < ND; k++) {
+      if (k < ND - 1) {
+        int d = (int)(((r + 32768) & 0xFFFF) - 32768);
+        e[k][j] = i == W - 1 - k ? (int)r : d;
+        r = (r - d) >> 16;
+      } else {
+        e[k][j] = (int)r;
+      }
+    }
+  }
+  int acc[NPT];
+#pragma unroll
+  for (int j = 0; j < NPT; j++) {
+    acc[j] = e[0][j];
+#pragma unroll
+    for (int k = 1; k < ND; k++)
+      if (j - k >= 0) acc[j] += e[k][j - k];
+  }
+#pragma unroll
+  for (int tb = 1; tb <= (ND - 1 + NPT - 1) / NPT; tb++) {
+#pragma unroll
+    for (int j = 0; j < NPT; j++) {
+      int send = 0;
+      bool any = false;
+#pragma unroll
+      for (int k = 1; k < ND; k++) {
+        const int src = j - k;
+        if (src < 0 && (-src + NPT - 1) / NPT == tb) {
+          send += e[k][src + tb * NPT];
+          any = true;
+        }
+      }
+      if (any) {
+        int v = __shfl_up_sync(WL_FULL, send, tb);
+        if (lane >= tb) acc[j] += v;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NPT; j++) out[j] = lane * NPT + j < W ? acc[j] : 0;
 }
 
 }  // namespace wl

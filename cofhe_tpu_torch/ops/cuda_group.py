@@ -2,15 +2,30 @@
 cofhe_tpu/ops/pallas_group.py).
 
 Three kernels, CUDA C++ for sm_90a under cofhe_tpu_torch/csrc/, built with
-nvcc into plain-C shared libraries at first use and bound with ctypes:
+nvcc into plain-C shared libraries at first use and bound with ctypes. Each
+gives one warp to one batch row; the source notes say more.
 
 * K1 `xgcd_coeff_g` (csrc/xgcd_coeff_g.cu) replaces
-  pallas_group.py::xgcd_coeff_g; its plain version is ops/xgcd2.py.
+  pallas_group.py::xgcd_coeff_g: Bernstein-Yang divsteps, d = gcd(f, g)
+  and the Bezout coefficient; its plain version is ops/xgcd2.py. Bound by
+  integer operations (13-step groups applied to every limb).
 * K2 `mod_topdown` (csrc/mod_topdown.cu) replaces pallas_group.py::
-  mod_topdown; its plain version is ops/rl.py.
+  mod_topdown: x mod m, computing the JAX package's 28-bit-digit variant,
+  whose plain version is ops/rl.py::mod_topdown28. Bound by integer
+  operations; each iteration is one 64-bit product a limb over the live
+  window x[j .. j + Lm + 3) only, with m in registers and the limb shift an
+  address offset.
 * K3 `reduce2_grouped` (csrc/reduce2_grouped.cu) replaces the XLA loop of
-  forms2.py::CG.reduce2_grouped; its plain version is
-  ops/forms2.py::grouped_rho_loop.
+  forms2.py::CG.reduce2_grouped: rho-descent groups with a 2^22 matrix
+  budget steered by float64 estimates, applied with 64-bit products; its
+  plain version is ops/forms2.py::grouped_rho_loop_wide, whose limbs it
+  matches. Held back by the scalar simulation between groups, which the
+  design keeps to products, comparisons and one or two divisions a step.
+
+The main path runs 97% of K2's and K3's launches at 128-256 lanes, where a
+kernel's time is the latency of one warp's loop rather than the card's
+rate; every kernel runs four lanes a block. The earlier plain versions,
+rl.mod_topdown and forms2.grouped_rho_loop, stay as references.
 
 The dispatchers `xgcd_coeff_g`, `mod_topdown` and `reduce2_grouped_loop` are
 what ops/forms2.py calls: a CPU tensor goes to the plain version, a CUDA
@@ -40,12 +55,12 @@ MAX_LIMBS = 288  # 9 limbs per thread x 32 threads
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry points: device pointers, ints (and a float), then the stream
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# C entry points: device pointers, ints (and a double), then the stream
 _ARGTYPES = {
     "xgcd_coeff_g": [_P] * 7 + [_I] * 4 + [_P],
     "mod_topdown": [_P] * 4 + [_I] * 4 + [_P],
-    "reduce2_grouped": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "reduce2_grouped": [_P] * 7 + [_I] * 4 + [_D, _P],
 }
 KERNELS = tuple(_ARGTYPES)
 
@@ -192,21 +207,22 @@ def xgcd_coeff_g(f_mag, g_mag, m_mag, nbits: int, need_u: bool = False):
 # ----------------------------------------------------------- K2: mod_topdown
 
 
-def mod_topdown_plain(x, m_mag, max_iters: int):
-    return rl.mod_topdown(x, m_mag, max_iters=max_iters)
+def mod_topdown_plain(x, m_mag, max_iters: int, iters=None):
+    return rl.mod_topdown28(x, m_mag, max_iters=max_iters, iters=iters)
 
 
 def mod_topdown_cuda(x, m_mag, max_iters: int, iters=None):
-    """K2 on the card: same contract and output as rl.mod_topdown.
-    `iters`, if given, receives each row's number of loop iterations."""
+    """K2 on the card: same contract and output as rl.mod_topdown28 (and
+    rl.mod_topdown). `iters`, if given, receives each row's number of loop
+    iterations."""
     _check("mod_topdown", x, m_mag)
     B, L = x.shape
     Lm = m_mag.shape[1]
     if m_mag.shape[0] != B:
         raise ValueError("mod_topdown: x and m must share the batch size")
-    if not 1 <= Lm < L <= MAX_LIMBS:
-        raise ValueError(f"mod_topdown: need 1 <= Lm < Lx <= {MAX_LIMBS}, "
-                         f"got Lm={Lm}, Lx={L}")
+    if not 1 <= Lm < L <= MAX_LIMBS or Lm > MAX_LIMBS - 3:
+        raise ValueError(f"mod_topdown: need 1 <= Lm < Lx <= {MAX_LIMBS} and "
+                         f"Lm <= {MAX_LIMBS - 3}, got Lm={Lm}, Lx={L}")
     out = torch.empty_like(x)
     _launch("mod_topdown", x, x.data_ptr(), m_mag.data_ptr(), out.data_ptr(),
             _iters_ptr(iters, B, x), B, L, Lm, int(max_iters))
@@ -224,18 +240,18 @@ def mod_topdown(x, m_mag, max_iters: int):
 
 
 def reduce2_grouped_loop_plain(a, b, c, dD_mant: float, dD_top: int,
-                               red_iters: int):
-    from .forms2 import grouped_rho_loop  # forms2 imports this module
+                               red_iters: int, iters=None):
+    from .forms2 import grouped_rho_loop_wide  # forms2 imports this module
 
-    return grouped_rho_loop(a, b, c, dD_mant, dD_top, red_iters)
+    return grouped_rho_loop_wide(a, b, c, dD_mant, dD_top, red_iters, iters)
 
 
 def reduce2_grouped_loop_cuda(a, b, c, dD_mant: float, dD_top: int,
                               red_iters: int, iters=None):
-    """K3 on the card: the grouped rho-descent loop of forms2 on redundant
-    (a, b, c); returns redundant (a, b, c) of the same class whose exact
-    tail equals the plain version's. `iters`, if given, receives each row's
-    number of groups."""
+    """K3 on the card: forms2.grouped_rho_loop_wide on redundant (a, b, c);
+    returns the same redundant limbs, whose exact tail is the unique
+    reduced form. `iters`, if given, receives each row's number of
+    groups."""
     _check("reduce2_grouped", a, b, c)
     B, L = a.shape
     if b.shape != (B, L) or c.shape != (B, L):

@@ -78,7 +78,7 @@ def _c_est(ma, ta, mb, tb, dD_mant: float, dD_top: int):
 
 
 def grouped_rho_loop(a_red, b_red, c_red, dD_mant: float, dD_top: int,
-                     red_iters: int):
+                     red_iters: int, iters=None):
     """The grouped rho-descent loop (plain version of K3): simulate up to 3
     normalization/rho quotients per group on (mant, top) scalar estimates,
     accumulating a unimodular M = [[p, q], [r, s]] with entries below 2^12,
@@ -89,7 +89,8 @@ def grouped_rho_loop(a_red, b_red, c_red, dD_mant: float, dD_top: int,
     with 13+12-bit split coefficients. Inputs must be a genuine form of the
     discriminant |Delta| = dD_mant * 2^(16 dD_top); returns the redundant
     (a, b, c) after at most red_iters groups. Estimate noise can only waste
-    a group; the exact tail finishes."""
+    a group; the exact tail finishes. `iters`, if given, receives each
+    lane's number of groups."""
     sim_steps = 3
     lim = 4096  # 2^12 matrix-entry bound
 
@@ -108,9 +109,11 @@ def grouped_rho_loop(a_red, b_red, c_red, dD_mant: float, dD_top: int,
 
     a, b, c = rl.carry2(a_red), rl.carry2(b_red), rl.carry2(c_red)
     ma, ta, mb, tb, lane = ests(a, b)
+    count = torch.zeros_like(ta)
     for it in range(red_iters):
         if it % SYNC_EVERY == 0 and not bool(lane.any()):
             break
+        count = count + lane.to(I32)
         p = torch.ones_like(ta)
         r = torch.zeros_like(ta)
         qq = torch.zeros_like(ta)
@@ -158,6 +161,125 @@ def grouped_rho_loop(a_red, b_red, c_red, dD_mant: float, dD_top: int,
                    xform(2 * p * qq, p * ss + qq * r, 2 * r * ss),
                    xform(qq * qq, qq * ss, ss * ss))
         ma, ta, mb, tb, lane = ests(a, b)
+    if iters is not None:
+        iters.copy_(count)
+    return a, b, c
+
+
+# the wide grouped loop: matrix entries below 2^WIDE_E, up to WIDE_SIM
+# simulated quotients a group; the flags' margins 2^(+-0.25) and the freak
+# bound 2^25 of the f32 loop, as float64 constants the kernel shares
+WIDE_E = 22
+WIDE_SIM = 12
+UP, DOWN, FREAK = 1.189207115002721, 0.8408964152537145, 33554432.0
+F64 = torch.float64
+
+
+def _scaled_wide(ma, ta, mb, tb, dD_mant: float, dD_top: int):
+    """a, b and |Delta| as float64 at a's scale 2^(16 ta), which the group
+    keeps: a ~ ma, b ~ sb, |Delta| ~ dp (exponents clamped; a value that
+    underflows to 0 is negligible beside the others)."""
+    sb = mb * rl.pow2d((16 * (tb - ta)).clamp(-1100, 1000))
+    dp = dD_mant * rl.pow2d((16 * (dD_top - 2 * ta)).clamp(-1100, 1000))
+    return ma, sb, dp
+
+
+def _flags_wide(sa, sb, dp):
+    """(need_norm, need_rho, b^2 + |Delta|) by products, no logarithm and
+    no division: normalize when |b| > 2^0.25 a unless |b| > 2^25 a (a
+    freak quotient, left to the exact tail); rho when c = (b^2 + |Delta|)
+    / 4a < 2^-0.25 a."""
+    ab = sb.abs()
+    raw = ab > sa * UP
+    num = sb * sb + dp
+    need_rho = ~raw & (num < 4.0 * sa * sa * DOWN)
+    return raw & ~(ab > sa * FREAK), need_rho, num
+
+
+def grouped_rho_loop_wide(a_red, b_red, c_red, dD_mant: float, dD_top: int,
+                          red_iters: int, iters=None):
+    """The wide grouped rho-descent loop (plain version of K3). Per group:
+    take float64 estimates of a and b (top four limbs, `rl.value_est_wide`)
+    at a's scale, and simulate normalization/rho quotients on them (c from
+    the invariant c = (b^2 + |Delta|) / 4a, one division on a rho step and
+    one for the quotient) until the unimodular M = [[p, q], [r, s]] would
+    pass its 2^WIDE_E entry budget, the form looks reduced, or WIDE_SIM
+    steps; then apply M once with one int64 product per coefficient,
+        a' = a p^2 + b p r + c r^2
+        b' = 2 a p q + b (p s + q r) + 2 c r s
+        c' = a q^2 + b q s + c s^2
+    (coefficients below 2^45, balanced limbs below 2^15.01: each three-term
+    sum stays below 2^62), spread the sums back into 16-bit limbs and run
+    one carry pass. Every scalar step is an IEEE float64 operation that the
+    kernel performs in the same order (M's entries are exact float64
+    integers), so kernel and plain version give the same limbs. Estimate
+    noise can only waste a group; quotients above 25 bits fall to the
+    exact tail. `iters`, if given, receives each lane's number of groups."""
+    lim = float(1 << WIDE_E)
+
+    def ests(a, b):
+        ma, ta = rl.value_est_wide(a)
+        mb, tb = rl.value_est_wide(b)
+        sa, sb, dp = _scaled_wide(ma, ta, mb, tb, dD_mant, dD_top)
+        nn, nr, _ = _flags_wide(sa, sb, dp)
+        return (sa, sb, dp), nn | nr
+
+    a, b, c = rl.carry2(a_red), rl.carry2(b_red), rl.carry2(c_red)
+    (sa, sb, dp), lane = ests(a, b)
+    count = torch.zeros_like(lane, dtype=torch.int64)
+    for _ in range(red_iters):
+        if not bool(lane.any()):
+            break
+        count = count + lane.long()
+        one, zero = torch.ones_like(sa), torch.zeros_like(sa)
+        p, r, qq, ss = one, zero, zero, one
+        live = lane
+        for _ in range(WIDE_SIM):
+            if not bool(live.any()):
+                break
+            need_norm, need_rho, num = _flags_wide(sa, sb, dp)
+            act = live & (need_norm | need_rho)
+            do_rho = act & need_rho
+            # rho: (a, b, c) -> (c, -b, a), M right-multiplied by [[0,-1],[1,0]]
+            man = torch.where(do_rho, num / (4.0 * sa).clamp(min=1e-300), sa)
+            mbn = torch.where(do_rho, -sb, sb)
+            p2, qq2 = torch.where(do_rho, qq, p), torch.where(do_rho, -p, qq)
+            r2, ss2 = torch.where(do_rho, ss, r), torch.where(do_rho, -r, ss)
+            # q = round(b / 2a) of the form after the rho, from sa and sb
+            # (-2ab / (b^2 + |Delta|) after a rho, so that the kernel's two
+            # divisions run side by side); past the budget it is clipped to
+            # what the budget leaves (the division runs only then in the
+            # kernel)
+            qreal = torch.where(do_rho, -2.0 * sa * sb / num.clamp(min=1e-300),
+                                sb / (2.0 * sa).clamp(min=1e-300))
+            qround = torch.round(qreal)
+            col1 = torch.maximum(p2.abs(), r2.abs()).clamp(min=1.0)
+            col2 = torch.maximum(qq2.abs(), ss2.abs())
+            spent = ~(qround.abs() * col1 + col2 <= lim)
+            qcap = torch.floor((lim - col2) / col1)
+            qf = torch.where(spent, torch.minimum(torch.maximum(qround, -qcap), qcap),
+                             qround)
+            nb = mbn - 2.0 * qf * man
+            sa, sb = torch.where(act, man, sa), torch.where(act, nb, sb)
+            p, r = torch.where(act, p2, p), torch.where(act, r2, r)
+            qq = torch.where(act, qq2 - qf * p2, qq)
+            ss = torch.where(act, ss2 - qf * r2, ss)
+            live = act & ~spent
+        p, r, qq, ss = p.long(), r.long(), qq.long(), ss.long()
+        al, bl, cl = a.long(), b.long(), c.long()
+
+        def xform(ca, cb, cc, old):
+            s = ca[..., None] * al + cb[..., None] * bl + cc[..., None] * cl
+            # finished lanes keep their limbs (the kernel's warp has left)
+            return torch.where(lane[..., None], rl.carry_pass(rl.spread_carry(s, 4)), old)
+
+        a, b, c = (xform(p * p, p * r, r * r, a),
+                   xform(2 * p * qq, p * ss + qq * r, 2 * r * ss, b),
+                   xform(qq * qq, qq * ss, ss * ss, c))
+        (sa, sb, dp), on = ests(a, b)
+        lane = lane & on
+    if iters is not None:
+        iters.copy_(count)
     return a, b, c
 
 
@@ -243,7 +365,7 @@ class CG:
         return reduce_batch(BForm(am, sb, bm, cm), self.disc_bits // 4 + 64)
 
     def reduce2_grouped(self, a_red, b_red, c_red) -> BForm:
-        """Grouped rho-descent (`grouped_rho_loop`, K3 on the card), then
+        """Grouped rho-descent (`grouped_rho_loop_wide`, K3 on the card), then
         the exact tail."""
         return self._tail(*cuda_group.reduce2_grouped_loop(
             a_red, b_red, c_red, self.dD_mant, self.dD_top, self.red_iters))

@@ -3,8 +3,9 @@ cofhe_tpu/ops/rl.py).
 
 Values stay REDUNDANT across loop iterations (balanced limbs after
 `carry_pass`) and loops are steered by float32 estimates; only the exact
-tails canonicalize. `mod_topdown` here is the plain version of the Hopper
-kernel in csrc/mod_topdown.cu (ops/cuda_group.py dispatches between them).
+tails canonicalize. `mod_topdown28` here is the plain version of the
+Hopper kernel in csrc/mod_topdown.cu (ops/cuda_group.py dispatches between
+them); `mod_topdown`, the 24-bit-digit schedule, stays as a reference.
 
 Loop conditions are host syncs in eager PyTorch. Every loop body below is a
 fixed point on finished lanes, so the port may test the condition every few
@@ -133,6 +134,140 @@ def mod_topdown(x, m_mag, active=None, max_iters: int | None = None):
             wleft = wleft - do_shift.to(I32)
         it += 1
     return exact_mod_tail(xc, m)
+
+
+def digit_est(mant_x, top_x, mant_m, top_m, max_digit_bits: int = 28,
+              jmax=None):
+    """q = value(x) / value(m) as (qd, j) with q ~= qd * 2^(16 j), qd signed
+    int32, |qd| < 2^max_digit_bits, 0 <= j <= jmax; m must be positive.
+
+    Two departures from the JAX package's digit_est, both faults that stall
+    its mod_topdown28 (ROADMAP queue 3): the scale's exponent is clamped at
+    60, not at max_digit_bits + 2 (ebits - 16 j reaches max_digit_bits + 16
+    when mant_x / mant_m is small, and the tighter clamp cuts the digit by
+    up to 2^14); and j is clipped to jmax before the digit is taken, so the
+    digit belongs to the shift it is applied at (the JAX loop clips j after,
+    and its digit then removes ~2^-16 of what it should). The digit clamp
+    is the real bound."""
+    ratio = mant_x / mant_m.clamp(min=1e-30)
+    ebits = 16 * (top_x - top_m)
+    qbits = ebits + log2f_i(ratio) + 1
+    j = torch.div(qbits - max_digit_bits + 15, 16, rounding_mode="floor").clamp(min=0)
+    if jmax is not None:
+        j = torch.minimum(j, jmax)
+    scale = pow2f((ebits - 16 * j).clamp(-126, 60))
+    lim = float((1 << max_digit_bits) - 1)
+    qd = torch.round(ratio * scale).clamp(-lim, lim)
+    return qd.to(I32), j.to(I32)
+
+
+def submul_shifted(x, qd, j, m, m14):
+    """x - qd * m * 2^(16 j) on redundant limbs, |qd| < 2^28 split 14+14
+    against m and m14 = canonical m * 2^14."""
+    s = torch.sign(qd)
+    a = qd.abs()
+    lo = ((a & 0x3FFF) * s)[..., None]
+    hi = ((a >> 14) * s)[..., None]
+    p = carry_pass(lo * m) + carry_pass(hi * m14)
+    return x - shl_limbs_take(p, j)
+
+
+def mod_topdown28(x, m_mag, active=None, max_iters: int | None = None,
+                  iters=None):
+    """x mod m with 28-bit estimated digits: the plain version of K2 (port
+    of the JAX package's rl.mod_topdown28, same contract and canonical
+    output as mod_topdown). Each iteration subtracts qd * m * 2^(16 j)
+    (digit_est + submul_shifted) and runs carry2; exact tail of <= 2 fixes.
+    `iters`, if given, is a (B,) int32 tensor that receives each lane's
+    number of working iterations."""
+    L = x.shape[-1]
+    Lm = m_mag.shape[-1]
+    if Lm >= L:
+        raise ValueError(f"m width {Lm} must be below x width {L}")
+    m = lb.resize(m_mag, L)
+    _, m14 = lb.canonicalize_fast(m << 14)
+    mant_m, top_m = value_est(m)
+    bits_m = bits_est(mant_m, top_m)
+    if active is None:
+        active = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
+    if max_iters is None:
+        max_iters = L + 60
+    jmax = (L - 2 - top_m).clamp(min=0)
+
+    def need_work(xc):
+        mant_x, top_x = value_est(xc)
+        return active & (bits_est(mant_x, top_x) > bits_m - 0.75), mant_x, top_x
+
+    xc = carry2(x)
+    w, mant_x, top_x = need_work(xc)
+    count = torch.zeros_like(top_m)
+    it = 0
+    while it < max_iters and bool(w.any()):
+        qd, j = digit_est(mant_x, top_x, mant_m, top_m, 28, jmax)
+        qd = torch.where(w, qd, 0)
+        count = count + w.to(I32)
+        xc = carry2(submul_shifted(xc, qd, j, m, m14))
+        w, mant_x, top_x = need_work(xc)
+        it += 1
+    if iters is not None:
+        iters.copy_(count)
+    return exact_mod_tail(xc, m)
+
+
+# ---------------------------------------------- 64-bit steering (K3 wide)
+
+
+def pow2d(e):
+    """2^e as float64 for int64 e, built from its exponent bits; 0 below
+    -1022, clamped at 1023."""
+    bits = (e.clamp(-1022, 1023) + 1023) << 52
+    return torch.where(e >= -1022, bits.to(torch.int64).view(torch.float64), 0.0)
+
+
+def value_est_wide(x):
+    """(mant float64, top int64) with value(x) ~= mant * 2^(16 top) for
+    balanced limbs, from the top four limbs: the top three summed exactly
+    in int64, the fourth added in float64, so the result does not depend
+    on a summation order. The all-zero value gives (0.0, 0)."""
+    L = x.shape[-1]
+    idx = lb._arange(L, x.device).long()
+    top = torch.where(x != 0, idx, 0).amax(-1)
+    xl = x.long()
+
+    def limb(k):
+        i = top - k
+        v = torch.gather(xl, -1, i.clamp(min=0)[..., None])[..., 0]
+        return torch.where(i >= 0, v, 0)
+
+    p = (limb(0) << 32) + (limb(1) << 16) + limb(2)
+    mant = (p.to(torch.float64) + limb(3).to(torch.float64) * 2.0 ** -16) * 2.0 ** -32
+    return mant, top
+
+
+def spread_carry(s, ndig: int):
+    """int64 limb sums |s| < 2^(16 ndig - 2) -> int32 limbs of the same
+    value: each sum is split into ndig balanced 16-bit digits (the last
+    one takes the rest) and digit k moves k limbs up, so every limb below
+    the top lands within ndig * 2^15. The top limb keeps everything that
+    would pass it, as carry_pass's top limb does."""
+    L = s.shape[-1]
+    digs, rests = [], [s]
+    r = s
+    for _ in range(ndig - 1):
+        d = ((r + (1 << 15)) & 0xFFFF) - (1 << 15)
+        digs.append(d)
+        r = (r - d) >> 16
+        rests.append(r)
+    digs.append(r)
+    out = digs[0].clone()
+    for k in range(1, ndig):
+        out = out + lb._shift_up(digs[k], k)
+    top = s[..., L - 1]
+    for k in range(1, ndig):
+        if L - 1 - k >= 0:
+            top = top + rests[k][..., L - 1 - k]
+    out[..., L - 1] = top
+    return out.to(I32)
 
 
 def exact_mod_tail(xf, m):

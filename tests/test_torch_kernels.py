@@ -8,8 +8,12 @@ versions.
 * K2 `mod_topdown`: cofhe_tpu_torch.ops.rl vs cofhe_tpu.ops.rl and
   pallas_group.mod_topdown in interpret mode (edge cases of
   tests/test_pallas.py:50-52), plus Python's %.
-* K3 `reduce2_grouped`: checked through compose2 in test_torch_forms2.py;
-  here only its card test.
+* K3 `reduce2_grouped`: checked through compose2 in test_torch_forms2.py
+  and against the JAX loop in test_torch_wide.py; here only its card test.
+
+The wide schedules K2 and K3 compute (rl.mod_topdown28,
+forms2.grouped_rho_loop_wide) are held against the JAX package in
+test_torch_wide.py.
 
 Tolerance: exact equality of the canonical outputs (d, cg, cu, x mod m,
 reduced forms).
@@ -120,10 +124,13 @@ def cuda_device():
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card(cuda_device):
     """K1, K2 and K3 on the card against their plain versions on the same
-    card tensors, at the main path's widths with a ragged batch."""
+    card tensors, at the main path's widths with a ragged batch; K2 and K3
+    also against the earlier plain versions (rl.mod_topdown,
+    grouped_rho_loop)."""
     from cofhe_tpu_torch.core.cl_hsm2k import CLHSM2k
     from cofhe_tpu_torch.ops.engine import TorchEngine
     from cofhe_tpu_torch.ops.forms import bform_from_forms
+    from cofhe_tpu_torch.ops.forms2 import grouped_rho_loop
     from cofhe_tpu_torch.ops.hostgmp import GmpClassGroup
 
     rng = random.Random(99)
@@ -142,6 +149,7 @@ def test_kernels_match_plain_on_card(cuda_device):
     m = torch.from_numpy(lb.ints_to_limbs(ms, 144)).to(cuda_device)
     got = cuda_group.mod_topdown_cuda(x, m, 378)
     _same([got], [cuda_group.mod_topdown_plain(x, m, 378)])
+    _same([got], [cuda_group.rl.mod_topdown(x, m, max_iters=378)])
     assert lb.limbs_to_ints(got) == [a % b for a, b in zip(xs, ms)]
 
     hsm = CLHSM2k(128, 128)
@@ -153,5 +161,8 @@ def test_kernels_match_plain_on_card(cuda_device):
     a3, b3s, b3m, c3, _, _ = cg.compose2_unreduced(
         bform_from_forms(f1, cg.L, cuda_device), bform_from_forms(f2, cg.L, cuda_device))
     args = (a3, b3s[..., None] * b3m, c3, cg.dD_mant, cg.dD_top, cg.red_iters)
-    _same(cg._tail(*cuda_group.reduce2_grouped_loop_cuda(*args)),
-          cg._tail(*cuda_group.reduce2_grouped_loop_plain(*args)))
+    raw = cuda_group.reduce2_grouped_loop_cuda(*args)
+    # the wide loop gives the plain version's very limbs, and after the
+    # exact tail the 2^12-budget loop's forms
+    _same(raw, cuda_group.reduce2_grouped_loop_plain(*args))
+    _same(cg._tail(*raw), cg._tail(*grouped_rho_loop(*args)))
