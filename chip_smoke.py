@@ -16,19 +16,24 @@
    backend's for the same inputs and Enc(0). Wrappers around the three
    kernels count each kernel's launches by shape and batch and record the
    operands of one decrypt compose2 (128 lanes), one chain compose2 (256)
-   and one ladder compose2 (16384).
+   and one ladder compose2 (16384). K1 is then checked again, with and
+   without need_u, on the recorded decrypt lanes whose gcd is above 1
+   (there cg is not unique mod m: only the reference's divstep sequence
+   gives it).
 3. The kernel table: every kernel at every recorded main-path shape and
-   batch, checked against its plain versions, with its trip counts, time
-   and bound (K2 and K3 also at the 24-bit-digit / 2^12-budget kernels'
-   per-limb operation counts); the device time of one compose2 at 128
-   lanes split by kernel.
+   batch, checked against its plain versions (K1 also against Python's
+   gcd and the Bezout identity), with its trip counts (K1 in groups and
+   in divsteps), time and bound (also at the earlier kernels' per-limb
+   operation counts: the 13-divstep K1, the 24-bit-digit K2, the
+   2^12-budget K3); the device time of one compose2 at 128 lanes split by
+   kernel.
 4. Prints the card's name and power limit, one JSON line with each
    kernel's numbers, and as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero. It needs CUDA and
 the rest of the repository; without either it exits non-zero and prints no
-result. `python3 -m cofhe_tpu_torch.tools.kernel_compare` times K2 and K3
-against an earlier csrc/ on the same recorded operands.
+result. `python3 -m cofhe_tpu_torch.tools.kernel_compare` times an
+earlier csrc/'s kernels beside this tree's on the same recorded operands.
 """
 
 from __future__ import annotations
@@ -55,17 +60,23 @@ MEM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2 / 2
 # int32 operations per limb of one loop iteration, counted from the kernel
 # sources (products, sums, shifts, masks; a carry pass counts 5, a value
-# estimate 4, a 64-bit add or shift 2): K1 per divstep group (+84 with
-# need_u); K2 per iteration and window limb (32 * ceil((Lm + 3) / 32)
-# limbs: load, 64-bit product and subtraction, 3-digit spread, carry
-# pass, store, value estimate); K3 per group and limb (9 int64 products and
-# sums, three 4-digit spreads and carry passes, two top-word estimates).
-# The counts read off the earlier kernels (24-bit-digit K2, 2^12-budget
-# K3), K2 20 and K3 74, leave out the new kernels' extra carry pass, value
-# estimates and wider spreads; the table also gives the bound at those
-# counts over the new kernels' trips and limbs.
-OPS_K1, OPS_K1_U, OPS_K2, OPS_K3 = 108, 84, 36, 147
-OPS_K2_OLD, OPS_K3_OLD = 20, 74
+# estimate 4, a 64-bit add or shift 2). K1 per divstep and limb: a
+# 30-divstep group does 83 a limb (f, g: 4 int64 products and sums, two
+# shifts by 2^30 (6 each), two 16-bit splits (3 each) and carry passes,
+# the zero test; Q, S: 6 products and sums with the m term, the same
+# normalization, two sign keys) and 46 more with need_u; the scalar
+# divstep chain (20 ops a step, once a lane) is not counted. K2 per
+# iteration and window limb (32 * ceil((Lm + 3) / 32) limbs: load, 64-bit
+# product and subtraction, 3-digit spread, carry pass, store, value
+# estimate); K3 per group and limb (9 int64 products and sums, three
+# 4-digit spreads and carry passes, two top-word estimates). The table
+# also gives each bound at the earlier kernels' counts over the new
+# kernels' trips and limbs: K1 108 a 13-divstep group and limb (higher
+# than the new count a divstep, so that bound is the larger), 24-bit-digit
+# K2 20 and 2^12-budget K3 74 (lower: they leave out the redesigns' extra
+# carry pass, value estimates and wider spreads).
+OPS_K1, OPS_K1_U, OPS_K2, OPS_K3 = 83 / 30, 46 / 30, 36, 147
+OPS_K1_OLD, OPS_K2_OLD, OPS_K3_OLD = 108 / 13, 20, 74
 TIMING_REPS = 5
 
 
@@ -120,16 +131,38 @@ def k2_window(Lm: int) -> int:
 # ------------------------------------------------------------ kernel checks
 
 
-def check_k1(torch, cgp, lb, rng, W, nbits, need_u, B, op_bits):
-    """K1 vs its plain version and Python's gcd / Bezout identity."""
+def k1_oracle(lb, name, fs, gs, got, need_u) -> int:
+    """K1's outputs against Python's gcd and the Bezout identity (m = f);
+    returns the number of lanes with d > 1."""
+    d, cg = lb.limbs_to_ints(got[0].cpu()), lb.limbs_to_ints(got[1].cpu())
+    cu = lb.limbs_to_ints(got[2].cpu()) if need_u else None
+    for i, (f, g) in enumerate(zip(fs, gs)):
+        if d[i] != math.gcd(f, g) or not 0 <= cg[i] < f \
+                or (cg[i] * g - d[i]) % f:
+            fail(f"{name} lane {i}: gcd/Bezout wrong")
+        if need_u and (cu[i] * f + cg[i] * g - d[i]) % f:
+            fail(f"{name} lane {i}: need_u Bezout wrong")
+    return sum(x > 1 for x in d)
+
+
+def k1_trips(iters, steps: int) -> str:
+    """K1's trips in groups of `steps` divsteps and in divsteps."""
+    return (f"groups {_stats(iters)}, divsteps mean "
+            f"{steps * float(iters.float().mean()):.1f} max {steps * int(iters.max())}")
+
+
+def check_k1(torch, cgp, lb, rng, W, nbits, need_u, B, op_bits, extra=()):
+    """K1 vs its plain version and Python's gcd / Bezout identity; `extra`
+    (f, g) pairs take the lanes after the edge cases."""
     dev = "cuda"
     fs = [rng.getrandbits(rng.randrange(op_bits // 2, op_bits + 1)) | 1
           for _ in range(B)]
     gs = [rng.getrandbits(rng.randrange(1, op_bits + 1)) for _ in range(B)]
     k = rng.getrandbits(op_bits // 3) | 1
     edge = [(1, 0), (1, 5), (3, 0), (3, 6), (k * 9, k * 6),
-            ((1 << (op_bits - 1)) + 1, 2), (fs[0], fs[0]), (fs[1], 0)]
-    for i, (f, g) in enumerate(edge):
+            ((1 << (op_bits - 1)) + 1, 2), (fs[0], fs[0]), (fs[1], 0),
+            (fs[2], fs[2] * 7)]
+    for i, (f, g) in enumerate(edge + list(extra)[:B - len(edge)]):
         fs[i], gs[i] = f, g
     f = torch.as_tensor(lb.ints_to_limbs(fs, W)).to(dev)
     g = torch.as_tensor(lb.ints_to_limbs(gs, W)).to(dev)
@@ -140,25 +173,18 @@ def check_k1(torch, cgp, lb, rng, W, nbits, need_u, B, op_bits):
     err = max_abs_diff(torch, got, plain)
     if err:
         fail(f"K1 W={W} B={B} differs from its plain version (max {err})")
-    d, cg = lb.limbs_to_ints(got[0]), lb.limbs_to_ints(got[1])
-    cu = lb.limbs_to_ints(got[2]) if need_u else None
-    for i in range(B):
-        if d[i] != math.gcd(fs[i], gs[i]) or not 0 <= cg[i] < fs[i] \
-                or (cg[i] * gs[i] - d[i]) % fs[i]:
-            fail(f"K1 W={W} lane {i}: gcd/Bezout wrong")
-        if need_u and (cu[i] * fs[i] + cg[i] * gs[i] - d[i]) % fs[i]:
-            fail(f"K1 W={W} lane {i}: need_u Bezout wrong")
+    n_d = k1_oracle(lb, f"K1 W={W}", fs, gs, got, need_u)
     ms = timed(torch, lambda: cgp.xgcd_coeff_g_cuda(f, g, f, nbits, need_u), TIMING_REPS)
     plain_ms = timed(torch, lambda: cgp.xgcd_coeff_g_plain(f, g, f, nbits, need_u),
                      1, warm=False) if B == KERNEL_B else float("nan")
     per_limb = OPS_K1 + (OPS_K1_U if need_u else 0)
-    ops = float(iters.long().sum()) * W * per_limb
+    ops = float(iters.long().sum()) * cgp.xgcd2.STEPS * W * per_limb
     nbytes = 4.0 * B * W * (3 + (3 if need_u else 2))
     bms, by = bound(ops, nbytes)
     log(f"K1 xgcd_coeff_g W={W} nbits={nbits} need_u={need_u} B={B}: "
-        f"bit-exact, oracle ok; groups mean {float(iters.float().mean()):.1f} "
-        f"max {int(iters.max())}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-        f"bound {bms:.4f} ms ({by})")
+        f"bit-exact, oracle ok ({n_d} lanes with d > 1, {len(extra)} of them "
+        f"given); {k1_trips(iters, cgp.xgcd2.STEPS)}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, err=err)
 
 
@@ -440,10 +466,15 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
         f, g, m, nbits = args
         got = cgp.xgcd_coeff_g_cuda(f, g, m, nbits, iters=iters)
         row["max_abs_err"] = max_abs_diff(torch, got, cgp.xgcd_coeff_g_plain(f, g, m, nbits))
+        if not torch.equal(f, m):
+            fail(f"{row['name']}: the recorded call does not pass m = f")
+        row["d_gt_1_lanes"] = k1_oracle(lb, row["name"], lb.limbs_to_ints(f.cpu()),
+                                        lb.limbs_to_ints(g.cpu()), got, False)
         fn = lambda: cgp.xgcd_coeff_g_cuda(f, g, m, nbits)  # noqa: E731
         plain_ms = timed(torch, lambda: cgp.xgcd_coeff_g_plain(f, g, m, nbits), 1,
                          warm=False)
-        ops = float(iters.long().sum()) * W * OPS_K1
+        steps = float(iters.long().sum()) * cgp.xgcd2.STEPS * W
+        ops, old_ops = steps * OPS_K1, steps * OPS_K1_OLD
         nbytes = 4.0 * B * W * 5
     elif name == "mod_topdown":
         x, m, max_iters = args
@@ -483,7 +514,7 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
     ms = timed(torch, fn, TIMING_REPS)
     bms, by = bound(ops, nbytes)
     row.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-               trips=_stats(iters))
+               trips=k1_trips(iters, cgp.xgcd2.STEPS) if name == "xgcd_coeff_g" else _stats(iters))
     if old_ops is not None:
         row["bound_old_counts_ms"] = bound(old_ops, nbytes)[0]
     log(f"table {row['name']}: launches {n_launch}, trips {row['trips']}, "
@@ -491,8 +522,24 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
         f"{bms / ms:.1%} of it)"
         + (f", bound at the earlier per-limb counts {row['bound_old_counts_ms']:.5f} ms "
            f"({row['bound_old_counts_ms'] / ms:.1%} of it)" if old_ops is not None else "")
-        + (f", exact-tail iterations {row['tail_iters']}" if "tail_iters" in row else ""))
+        + (f", exact-tail iterations {row['tail_iters']}" if "tail_iters" in row else "")
+        + (f", oracle ok, {row['d_gt_1_lanes']} lanes with d > 1"
+           if "d_gt_1_lanes" in row else ""))
     return row
+
+
+def decrypt_k1_lanes(lb, rec):
+    """(W, nbits, [(f, g), ...]) of the recorded decrypt K1 calls' lanes
+    with gcd(f, g) > 1 (nudupl steps: a1 = a2)."""
+    out = []
+    for (name, W, nbits, B), args in sorted(rec.ops.items()):
+        if name == "xgcd_coeff_g" and B == SMALL_B:
+            pairs = [(f, g) for f, g in zip(lb.limbs_to_ints(args[0].cpu()),
+                                            lb.limbs_to_ints(args[1].cpu()))
+                     if math.gcd(f, g) > 1]
+            if pairs:
+                out.append((W, nbits, pairs))
+    return out
 
 
 def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128):
@@ -618,7 +665,8 @@ def main() -> int:
     for W, nbits, need_u, op_bits in ((88, 1392, False, 1100),
                                       (144, 2117, False, 2085),
                                       (144, 2117, True, 2085),
-                                      (8, 136, False, 120)):
+                                      (8, 136, False, 120),
+                                      (1, 16, True, 12)):
         for B in (KERNEL_B, RAGGED_B):
             k1[(W, need_u, B)] = check_k1(torch, cgp, lb, rng, W, nbits,
                                           need_u, B, op_bits)
@@ -634,6 +682,15 @@ def main() -> int:
     rec = Recorder(torch, cgp)
     launches, _ = run_slice(torch, cgp, rec, port.CryptoSystem, port.Tensor,
                             hostgmp.GmpEngine, rng)
+    # K1 on the decrypt steps' d > 1 lanes, where cg is not unique mod m and
+    # only the reference's divstep sequence gives the plain version's cg
+    dec_lanes = decrypt_k1_lanes(lb, rec)
+    if not dec_lanes:
+        fail("no recorded decrypt K1 lane has d > 1")
+    for W, nbits, pairs in dec_lanes:
+        for need_u in (False, True):
+            check_k1(torch, cgp, lb, rng, W, nbits, need_u, RAGGED_B,
+                     nbits - 40, extra=pairs)
 
     t = time.perf_counter()
     table = []

@@ -7,8 +7,11 @@ gives one warp to one batch row; the source notes say more.
 
 * K1 `xgcd_coeff_g` (csrc/xgcd_coeff_g.cu) replaces
   pallas_group.py::xgcd_coeff_g: Bernstein-Yang divsteps, d = gcd(f, g)
-  and the Bezout coefficient; its plain version is ops/xgcd2.py. Bound by
-  integer operations (13-step groups applied to every limb).
+  and the Bezout coefficient; its plain version is ops/xgcd2.py, whose
+  limbs it matches. 30-divstep groups simulated on the low 32 bits and
+  applied with 64-bit products; the Bezout rows take libsecp256k1's
+  sign-steered safegcd update (no estimate, no quotient). Held back by
+  the latency of one warp's loop at the main path's batches.
 * K2 `mod_topdown` (csrc/mod_topdown.cu) replaces pallas_group.py::
   mod_topdown: x mod m, computing the JAX package's 28-bit-digit variant,
   whose plain version is ops/rl.py::mod_topdown28. Bound by integer
@@ -179,7 +182,7 @@ xgcd_coeff_g_plain = xgcd2.xgcd_coeff_g
 def xgcd_coeff_g_cuda(f_mag, g_mag, m_mag, nbits: int, need_u: bool = False,
                       iters=None):
     """K1 on the card: same contract and outputs as xgcd2.xgcd_coeff_g.
-    `iters`, if given, receives each row's number of divstep groups."""
+    `iters`, if given, receives each row's number of 30-divstep groups."""
     _check("xgcd_coeff_g", f_mag, g_mag, m_mag)
     B, W = f_mag.shape
     if g_mag.shape != (B, W) or m_mag.shape != (B, W):
@@ -189,7 +192,7 @@ def xgcd_coeff_g_cuda(f_mag, g_mag, m_mag, nbits: int, need_u: bool = False,
     d = torch.empty_like(f_mag)
     cg = torch.empty_like(f_mag)
     cu = torch.empty_like(f_mag) if need_u else None
-    groups = xgcd2.iterations_for_bits(nbits) // xgcd2.W
+    groups = xgcd2.groups_for_bits(nbits)
     _launch("xgcd_coeff_g", f_mag, f_mag.data_ptr(), g_mag.data_ptr(),
             m_mag.data_ptr(), d.data_ptr(), cg.data_ptr(),
             cu.data_ptr() if need_u else None, _iters_ptr(iters, B, f_mag),

@@ -1,27 +1,30 @@
-"""K2 and K3 of this checkout against those of an earlier csrc/ directory,
-on the operands the main path really passes, on one CUDA card.
+"""The kernels of this checkout against those built from an earlier csrc/
+directory, on the operands the main path really passes, on one CUDA card.
 
     python3 -m cofhe_tpu_torch.tools.kernel_compare --baseline-csrc DIR
-    python3 -m cofhe_tpu_torch.tools.kernel_compare --baseline-csrc DIR --k3-split
 
-DIR holds the earlier mod_topdown.cu (24-bit digits over all of x) and
-reduce2_grouped.cu (2^12 matrix budget), whose C entry points take dD_mant
-as a float; for example an unpacked `git archive` of an earlier commit's
-cofhe_tpu_torch/csrc. From the root of a checkout, the script:
+DIR holds the earlier sources of the three kernels (and warp_limbs.cuh)
+with this checkout's C entry points (cuda_group._ARGTYPES); for example an
+unpacked `git archive <commit> cofhe_tpu_torch/csrc`. The earlier K1 is
+the 13-divstep kernel: it gets its loop cap in 13-step groups (a cap that
+also covers any kernel of longer groups, whose loop ends once g is zero),
+and its trips count 13 divsteps a group. Where an earlier kernel is the
+same source as this checkout's, its pair of times shows the spread of the
+measurement. From the root of a checkout, the script:
 
-1. builds this checkout's kernels and the earlier K2 and K3 side by side;
+1. builds this checkout's kernels and the earlier ones side by side;
 2. drives chip_smoke's main path once (its checks included), recording
    the operands of one decrypt, chain and ladder compose2;
 3. runs the main path's matmul twice more in the same process on the same
-   inputs and Enc(0), with this checkout's K2 and K3 and with the earlier
+   inputs and Enc(0), with this checkout's kernels and with the earlier
    ones: seconds, exact-tail iterations, and whether the outputs equal the
    main run's;
-4. on each recorded K2 and K3 operand, checks that both kernels agree
-   (K2 bit for bit, K3 after the exact tail) and times them in turns
-   (earlier, this, this, earlier), with each one's trips and bound;
-5. profiles one compose2 at 128 lanes with each pair of kernels;
-6. with --k3-split, times K3 with its simulation cut and with its apply
-   cut, for the full kernel's mean group count.
+4. on each recorded operand, checks that both kernels agree (K1 and K2
+   bit for bit, K3 after the exact tail) and times them in turns
+   (earlier, this, this, earlier), with each one's trips and bound (the
+   earlier K1's at its 13-divstep per-limb count, K2 and K3 at this
+   checkout's counts);
+5. profiles one compose2 at 128 lanes with each set of kernels.
 
 Any disagreement raises. chip_smoke.py stays the check the port must pass;
 this script only measures.
@@ -41,18 +44,13 @@ import sys
 import time
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+BASELINE_K1_STEPS = 13  # divsteps a group of the earlier K1
 
 
 class Baseline:
-    """The K2 and K3 kernels of another csrc/ directory (the earlier C entry
-    points: dD_mant as a float), built with the package's nvcc flags and
-    called on the same tensors."""
-
-    ARGTYPES = {
-        "mod_topdown": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-        "reduce2_grouped": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_void_p],
-    }
+    """The kernels of another csrc/ directory, built with the package's
+    nvcc flags and called on the same tensors through this checkout's C
+    entry points."""
 
     def __init__(self, csrc: str, cgp, fail):
         self.csrc, self.cgp, self.fail, self.fns, self.procs = csrc, cgp, fail, {}, {}
@@ -60,7 +58,7 @@ class Baseline:
 
     def start(self) -> None:
         os.makedirs(self.out_dir, exist_ok=True)
-        for name in self.ARGTYPES:
+        for name in self.cgp.KERNELS:
             out = os.path.join(self.out_dir, f"lib{name}.so")
             cmd = [self.cgp._nvcc(), *self.cgp.NVCC_FLAGS, "-o", out,
                    os.path.join(self.csrc, f"{name}.cu")]
@@ -74,7 +72,7 @@ class Baseline:
             if p.returncode:
                 self.fail(f"baseline {name} did not build:\n{text}")
             fn = getattr(ctypes.CDLL(out), f"{name}_launch")
-            fn.restype, fn.argtypes = ctypes.c_int, self.ARGTYPES[name]
+            fn.restype, fn.argtypes = ctypes.c_int, self.cgp._ARGTYPES[name]
             self.fns[name] = fn
 
     def _call(self, torch, name, *args):
@@ -82,43 +80,60 @@ class Baseline:
         if rc:
             self.fail(f"baseline {name} launch failed: cudaError {rc}")
 
+    @staticmethod
+    def _ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def xgcd_coeff_g(self, torch, f, g, m, nbits, need_u=False, iters=None):
+        d, cg = torch.empty_like(f), torch.empty_like(f)
+        cu = torch.empty_like(f) if need_u else None
+        self._call(torch, "xgcd_coeff_g", f.data_ptr(), g.data_ptr(), m.data_ptr(),
+                   d.data_ptr(), cg.data_ptr(), self._ptr(cu), self._ptr(iters),
+                   f.shape[0], f.shape[1],
+                   self.cgp.xgcd2.groups_for_bits(nbits, BASELINE_K1_STEPS), int(need_u))
+        return (d, cg, cu) if need_u else (d, cg)
+
     def mod_topdown(self, torch, x, m, max_iters, iters=None):
         out = torch.empty_like(x)
         self._call(torch, "mod_topdown", x.data_ptr(), m.data_ptr(),
-                   out.data_ptr(), None if iters is None else iters.data_ptr(),
-                   x.shape[0], x.shape[1], m.shape[1], int(max_iters))
+                   out.data_ptr(), self._ptr(iters), x.shape[0], x.shape[1],
+                   m.shape[1], int(max_iters))
         return out
 
-    def reduce2(self, torch, a, b, c, dD_mant, dD_top, red_iters, iters=None):
+    def reduce2_grouped(self, torch, a, b, c, dD_mant, dD_top, red_iters, iters=None):
         ao, bo, co = torch.empty_like(a), torch.empty_like(b), torch.empty_like(c)
         self._call(torch, "reduce2_grouped", a.data_ptr(), b.data_ptr(),
                    c.data_ptr(), ao.data_ptr(), bo.data_ptr(), co.data_ptr(),
-                   None if iters is None else iters.data_ptr(), a.shape[0],
-                   a.shape[1], int(dD_top), int(red_iters), float(dD_mant))
+                   self._ptr(iters), a.shape[0], a.shape[1], int(dD_top),
+                   int(red_iters), float(dD_mant))
         return ao, bo, co
+
+
+# cuda_group's wrapper for each kernel
+WRAPPER = {"xgcd_coeff_g": "xgcd_coeff_g_cuda", "mod_topdown": "mod_topdown_cuda",
+           "reduce2_grouped": "reduce2_grouped_loop_cuda"}
 
 
 @contextlib.contextmanager
 def baseline_in_place(torch, cgp, base):
-    """cuda_group's K2 and K3 wrappers replaced by the baseline kernels."""
-    saved = cgp.mod_topdown_cuda, cgp.reduce2_grouped_loop_cuda
-    cgp.mod_topdown_cuda = lambda x, m, mi, iters=None: \
-        base.mod_topdown(torch, x, m, mi, iters)
-    cgp.reduce2_grouped_loop_cuda = lambda a, b, c, dm, dt, ri, iters=None: \
-        base.reduce2(torch, a, b, c, dm, dt, ri, iters)
+    """cuda_group's kernel wrappers replaced by the baseline's."""
+    saved = {n: getattr(cgp, WRAPPER[n]) for n in cgp.KERNELS}
+    for n in cgp.KERNELS:
+        setattr(cgp, WRAPPER[n], lambda *a, _n=n, **k: getattr(base, _n)(torch, *a, **k))
     try:
         yield
     finally:
-        cgp.mod_topdown_cuda, cgp.reduce2_grouped_loop_cuda = saved
+        for n, fn in saved.items():
+            setattr(cgp, WRAPPER[n], fn)
 
 
 def matmul_again(torch, smoke, cgp, base, slice_args) -> None:
     """The main path's matmul once more with this checkout's kernels and
-    once with the baseline K2 and K3, on the same inputs and Enc(0)."""
+    once with the baseline's, on the same inputs and Enc(0)."""
     from cofhe_tpu_torch.core.qfi import is_reduced, reduce_form
 
     cs, pk, pt, ct, res, rand_at_matmul = slice_args
-    for label in ("this checkout's K2 and K3", "the baseline K2 and K3"):
+    for label in ("this checkout's kernels", "the baseline kernels"):
         cs.rand_gen = copy.deepcopy(rand_at_matmul)  # the same Enc(0)
         swap = baseline_in_place(torch, cgp, base) if label.startswith("the baseline") \
             else contextlib.nullcontext()
@@ -147,13 +162,28 @@ def matmul_again(torch, smoke, cgp, base, slice_args) -> None:
 
 def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
     """This checkout's kernel and the baseline one on one recorded operand:
-    agreement, trips, times in turns and bounds (each at its own per-limb
-    count, over its own trips and limbs)."""
+    agreement, trips, times in turns and bounds (each over its own trips
+    and limbs)."""
     name, W, _, B = key
     dev = args[0].device
     it_new = torch.zeros(B, dtype=torch.int32, device=dev)
     it_old = torch.zeros_like(it_new)
-    if name == "mod_topdown":
+    tails = ""
+    if name == "xgcd_coeff_g":
+        f, g, m, nbits = args
+        got = cgp.xgcd_coeff_g_cuda(f, g, m, nbits, iters=it_new)
+        old = base.xgcd_coeff_g(torch, f, g, m, nbits, iters=it_old)
+        if smoke.max_abs_diff(torch, old, got):
+            smoke.fail(f"{name}[W={W}]@B={B}: the baseline kernel gives another d or cg")
+        new_fn = lambda: cgp.xgcd_coeff_g_cuda(f, g, m, nbits)  # noqa: E731
+        old_fn = lambda: base.xgcd_coeff_g(torch, f, g, m, nbits)  # noqa: E731
+        steps_new, steps_old = cgp.xgcd2.STEPS, BASELINE_K1_STEPS
+        new_ops = float(it_new.long().sum()) * steps_new * W * smoke.OPS_K1
+        old_ops = float(it_old.long().sum()) * steps_old * W * smoke.OPS_K1_OLD
+        nbytes = 4.0 * B * W * 5
+        trips_new = smoke.k1_trips(it_new, steps_new)
+        trips_old = smoke.k1_trips(it_old, steps_old)
+    elif name == "mod_topdown":
         x, m, max_iters = args
         got = cgp.mod_topdown_cuda(x, m, max_iters, iters=it_new)
         old = base.mod_topdown(torch, x, m, max_iters, iters=it_old)
@@ -161,15 +191,16 @@ def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
             smoke.fail(f"{name}@B={B}: the baseline kernel disagrees")
         new_fn = lambda: cgp.mod_topdown_cuda(x, m, max_iters)  # noqa: E731
         old_fn = lambda: base.mod_topdown(torch, x, m, max_iters)  # noqa: E731
-        new_ops = float(it_new.long().sum()) * smoke.k2_window(m.shape[1]) * smoke.OPS_K2
-        old_ops = float(it_old.long().sum()) * W * smoke.OPS_K2_OLD
+        window = smoke.k2_window(m.shape[1]) * smoke.OPS_K2
+        new_ops, old_ops = float(it_new.long().sum()) * window, float(it_old.long().sum()) * window
         nbytes = 4.0 * B * (2 * W + m.shape[1])
-        tails = ""
+        trips_new, trips_old = smoke._stats(it_new), smoke._stats(it_old)
     else:
         a, b, c, dD_mant, dD_top, red_iters = args
         got = cgp.reduce2_grouped_loop_cuda(a, b, c, dD_mant, dD_top, red_iters,
                                             iters=it_new)
-        old = base.reduce2(torch, a, b, c, dD_mant, dD_top, red_iters, iters=it_old)
+        old = base.reduce2_grouped(torch, a, b, c, dD_mant, dD_top, red_iters,
+                                   iters=it_old)
         with smoke.TailCount() as t_new:
             tail_new = cg._tail(*got)
         with smoke.TailCount() as t_old:
@@ -178,11 +209,12 @@ def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
             smoke.fail(f"{name}@B={B}: the baseline kernel disagrees after the tail")
         new_fn = lambda: cgp.reduce2_grouped_loop_cuda(  # noqa: E731
             a, b, c, dD_mant, dD_top, red_iters)
-        old_fn = lambda: base.reduce2(  # noqa: E731
+        old_fn = lambda: base.reduce2_grouped(  # noqa: E731
             torch, a, b, c, dD_mant, dD_top, red_iters)
         new_ops = float(it_new.long().sum()) * W * smoke.OPS_K3
-        old_ops = float(it_old.long().sum()) * W * smoke.OPS_K3_OLD
+        old_ops = float(it_old.long().sum()) * W * smoke.OPS_K3
         nbytes = 4.0 * B * W * 6
+        trips_new, trips_old = smoke._stats(it_new), smoke._stats(it_old)
         tails = f", exact-tail iterations {t_new.n} (baseline {t_old.n})"
     # a first timing warms the card and sizes each turn to >= 20 ms of calls
     reps = max(smoke.TIMING_REPS, int(20.0 / smoke.timed(torch, new_fn, 3)))
@@ -191,85 +223,18 @@ def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
         t[turn].append(smoke.timed(torch, fn, reps))
     ms, old_ms = sum(t["new"]) / 2, sum(t["old"]) / 2
     bms, old_bms = smoke.bound(new_ops, nbytes)[0], smoke.bound(old_ops, nbytes)[0]
-    smoke.log(f"compare {name}@B={B}: this kernel {ms:.4f} ms (trips "
-              f"{smoke._stats(it_new)}, bound {bms:.5f} ms, {bms / ms:.1%} of it), "
-              f"baseline {old_ms:.4f} ms (trips {smoke._stats(it_old)}, bound "
+    smoke.log(f"compare {name}[W={W}]@B={B}: this kernel {ms:.4f} ms (trips "
+              f"{trips_new}, bound {bms:.5f} ms, {bms / ms:.1%} of it), "
+              f"baseline {old_ms:.4f} ms (trips {trips_old}, bound "
               f"{old_bms:.5f} ms, {old_bms / old_ms:.1%} of it), {old_ms / ms:.2f}x; "
               f"turns {t['old'][0]:.4f} {t['new'][0]:.4f} {t['new'][1]:.4f} "
               f"{t['old'][1]:.4f} ms, {reps} calls each" + tails)
 
 
-def k3_split(torch, smoke, cgp, ops_128, ops_16k) -> None:
-    """Where K3's time goes: this checkout's reduce2_grouped.cu built twice
-    more, once with the simulation cut (the identity matrix every group)
-    and once with the apply cut (the limbs never change), each run for the
-    full kernel's mean group count on the recorded operands. The cuts are
-    made on the source text and fail loudly once it no longer matches."""
-    src = open(os.path.join(cgp.CSRC_DIR, "reduce2_grouped.cu")).read()
-
-    def cut(text, old, new):
-        if text.count(old) != 1:
-            smoke.fail(f"k3 split: the source no longer holds {old!r}")
-        return text.replace(old, new)
-
-    # the identity matrix from values the compiler cannot fold
-    sim_cut = cut(src, "for (int step = 0; step < kSimMax; step++) {",
-                  "for (int step = 0; step < 0; step++) {")
-    sim_cut = cut(sim_cut, "double p = 1.0, r = 0.0, qq = 0.0, ss = 1.0;",
-                  "double p = 1.0 + (dp < -1.0), r = (double)(dp < -2.0), "
-                  "qq = (double)(dp < -3.0), ss = 1.0 + (dp < -4.0);")
-    apply_cut = cut(src, "    // ---- apply M once to the limbs\n",
-                    "    if ((P ^ R ^ Q ^ S) == 0x7fffffffffffLL) a[0]++;\n#if 0\n")
-    apply_cut = cut(apply_cut, "      c[j] = nc[j];\n    }\n",
-                    "      c[j] = nc[j];\n    }\n#endif\n")
-    out_dir = os.path.join(cgp.BUILD_DIR, "k3_split")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, text in (("apply_only", sim_cut), ("sim_only", apply_cut)):
-        cu = os.path.join(out_dir, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
-        lib = os.path.join(out_dir, f"lib{name}.so")
-        procs[name] = (subprocess.Popen(
-            [cgp._nvcc(), *cgp.NVCC_FLAGS, "-I", cgp.CSRC_DIR, "-o", lib, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    fns = {}
-    for name, (p, lib) in procs.items():
-        text, _ = p.communicate()
-        if p.returncode:
-            smoke.fail(f"k3 split {name} did not build:\n{text}")
-        fn = ctypes.CDLL(lib).reduce2_grouped_launch
-        fn.restype, fn.argtypes = ctypes.c_int, cgp._ARGTYPES["reduce2_grouped"]
-        fns[name] = fn
-    for ops in (ops_128, ops_16k):
-        a, b, c, dD_mant, dD_top, red_iters = ops
-        B, L = a.shape
-        iters = torch.zeros(B, dtype=torch.int32, device=a.device)
-        full = smoke.timed(torch, lambda: cgp.reduce2_grouped_loop_cuda(
-            a, b, c, dD_mant, dD_top, red_iters, iters=iters), smoke.TIMING_REPS)
-        groups = int(round(float(iters.float().mean())))
-        outs = [torch.empty_like(a) for _ in range(3)]
-        res = {"full": full}
-        for name, fn in fns.items():
-            def go(fn=fn, name=name):
-                rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                        *[o.data_ptr() for o in outs], None, B, L, int(dD_top),
-                        groups, float(dD_mant), torch.cuda.current_stream().cuda_stream)
-                if rc:
-                    smoke.fail(f"k3 split {name} launch failed: cudaError {rc}")
-            res[name] = smoke.timed(torch, go, smoke.TIMING_REPS)
-        smoke.log(f"K3 split B={B}, {groups} groups: " + json.dumps(
-            {k: round(v, 4) for k, v in res.items()}) + " ms")
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-csrc", required=True,
-                    help="a csrc/ directory with the earlier mod_topdown.cu and "
-                         "reduce2_grouped.cu")
-    ap.add_argument("--k3-split", action="store_true",
-                    help="also time K3 with its simulation cut and with its "
-                         "apply cut")
+                    help="a csrc/ directory with the earlier kernel sources")
     opts = ap.parse_args()
     import torch
 
@@ -303,17 +268,13 @@ def main() -> int:
                                     port.hostgmp.GmpEngine, rng)
     matmul_again(torch, smoke, cgp, base, slice_args)
     with torch.inference_mode():
-        for key in sorted(rec.ops, key=lambda k: (k[3], k[0])):
-            if key[0] != "xgcd_coeff_g":
-                compare_row(torch, smoke, cgp, cg, base, key, rec.ops[key])
-        if opts.k3_split:
-            k3_split(torch, smoke, cgp, rec.ops[("reduce2_grouped", 144, 0, 128)],
-                     rec.ops[("reduce2_grouped", 144, 0, smoke.KERNEL_B)])
+        for key in sorted(rec.ops, key=lambda k: (k[3], k[0], k[1])):
+            compare_row(torch, smoke, cgp, cg, base, key, rec.ops[key])
     smoke.profile_compose(torch, cg, gmp, hsm, port.bform_from_forms, rng,
                           "this checkout's kernels")
     with baseline_in_place(torch, cgp, base):
         smoke.profile_compose(torch, cg, gmp, hsm, port.bform_from_forms, rng,
-                              "baseline K2 and K3")
+                              "baseline kernels")
     smoke.log(smi)
     return 0
 
