@@ -20,15 +20,35 @@
    without need_u, on the recorded decrypt lanes whose gcd is above 1
    (there cg is not unique mod m: only the reference's divstep sequence
    gives it).
-3. The kernel table: every kernel at every recorded main-path shape and
+3. Engine ops at sec=128, k=128 on 64 of the main path's ciphertexts:
+   add_ciphertext_vectors and scal_ciphertext_vector (scalars 0, 1,
+   2^k - 1 and random k-bit values, the Yao ladder) must give the GMP host
+   engine's forms bit for bit, and the batched threshold combine
+   (combine_batch, t = 2 of n = 3, part-decryptions from GMP) the
+   plaintexts.
+4. The threshold network at sec=128, k=128: 1 setup, 3 CoFHE and 1 compute
+   node as in-process servers (t = 2, n = 3, no TLS); the setup node, the
+   compute node, the client and CoFHE node 0 run on the card, CoFHE nodes 1
+   and 2 on the GMP host. The client sends one 4x4 . 4x4 ciphertext
+   MULTIPLY (a Beaver matmul: 64 products, one opening round of 128
+   ciphertexts) and one tensor ADD; the dealer's key decrypts the results
+   on the GMP host, which must equal the integer matmul and sum mod 2^128.
+   CoFHE node 0 must have answered the opening round on the card (the
+   compute node's share combination is (0, 1), and every kernel launched
+   inside node 0's part-decryption).
+   Each path (main, engine ops, network) is driven with the launch counts
+   set to 0 just before it and read just after; every kernel must launch
+   in each.
+5. The kernel table: every kernel at every recorded main-path shape and
    batch, checked against its plain versions (K1 also against Python's
    gcd and the Bezout identity), with its trip counts (K1 in groups and
    in divsteps), time and bound (also at the earlier kernels' per-limb
    operation counts: the 13-divstep K1, the 24-bit-digit K2, the
    2^12-budget K3); the device time of one compose2 at 128 lanes split by
    kernel.
-4. Prints the card's name and power limit, one JSON line with each
-   kernel's numbers, and as the last line {"ok": true, "device": {...}}.
+6. Prints the card's name and power limit, one JSON line with each
+   kernel's numbers (launches in all and by path), and as the last line
+   {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero. It needs CUDA and
 the rest of the repository; without either it exits non-zero and prints no
@@ -43,6 +63,7 @@ import json
 import math
 import os
 import random
+import socket
 import subprocess
 import sys
 import time
@@ -53,6 +74,14 @@ N_ROWS, M_INNER, P_COLS = 2, 64, 64
 KERNEL_B = 16384   # lanes of one matmul ladder chunk
 RAGGED_B = 1001
 SMALL_B = 128      # lanes of a decrypt step
+ENGINE_N = 64      # ciphertexts of the engine-ops phase
+NET_DIM = 4        # the network's ct(4x4) . ct(4x4) Beaver matmul
+OPENING_B = 2 * NET_DIM ** 3  # ciphertexts of its opening round
+# the node runtime's RPC and client timeouts (120 s by default) must cover
+# a part-decryption ladder on the card (~200 s at sec=128); the triplet
+# cache deals exactly the 64 triplets of the matmul
+NODE_ENV = {"COFHE_RPC_TIMEOUT": "900", "COFHE_CLIENT_TIMEOUT_S": "900",
+            "COFHE_TRIPLET_CACHE": str(NET_DIM ** 3)}
 TABLE_B = (128, 256, 16384)  # decrypt, chain, ladder compose2 batches
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, and the int32 rate as half
 # the FP32 lanes of the 67 TFLOP/s float32 figure, one op per lane per clock
@@ -344,6 +373,21 @@ class Recorder:
 # ---------------------------------------------------------------- the path
 
 
+def check_path_launches(cgp, rec, path: str) -> dict:
+    """Every kernel launched in `path`'s run, and the recorder saw each
+    launch; returns the counts."""
+    launches = dict(cgp.LAUNCHES)
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the {path}")
+        if sum(v for k, v in rec.counts.items() if k[0] == name) != n:
+            fail(f"the recorder's count of {name} disagrees with LAUNCHES ({path})")
+    log(f"{path} launches: " + json.dumps(launches))
+    log(f"{path} launches by (kernel, width, nbits or Lm, batch): " + json.dumps(
+        {",".join(map(str, k)): v for k, v in sorted(rec.counts.items())}))
+    return launches
+
+
 def run_slice(torch, cgp, rec, CryptoSystem, Tensor, GmpEngine, rng):
     """encrypt -> homomorphic matmul -> decrypt at sec=128, k=128."""
     phases = {}
@@ -383,7 +427,7 @@ def run_slice(torch, cgp, rec, CryptoSystem, Tensor, GmpEngine, rng):
             torch.cuda.synchronize()
         phases["decrypt_s"] = time.perf_counter() - t
         phases["decrypt_tail_iters"] = tail.n
-    launches = dict(cgp.LAUNCHES)
+    launches = check_path_launches(cgp, rec, "main path")
 
     for i in range(N_ROWS):
         for kk in range(P_COLS):
@@ -395,12 +439,6 @@ def run_slice(torch, cgp, rec, CryptoSystem, Tensor, GmpEngine, rng):
 
     if not all(is_reduced(f) for c in res.data for f in c):
         fail("a matmul output form is not reduced")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    for name, n in launches.items():
-        if sum(v for k, v in rec.counts.items() if k[0] == name) != n:
-            fail(f"the recorder's count of {name} disagrees with LAUNCHES")
 
     # bit-identity with the GMP host backend: ct row 0 x pt[:, :2] with the
     # same Enc(0) must give the main path's res[0, 0] and res[0, 1]
@@ -417,11 +455,178 @@ def run_slice(torch, cgp, rec, CryptoSystem, Tensor, GmpEngine, rng):
         f"{N_ROWS * P_COLS} plaintexts correct, every output form reduced, "
         f"2 ciphertexts bit-identical to GMP")
     log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
-    log("main-path launches: " + json.dumps(launches))
-    slice_args = (cs, pk, pt, ct, res, rand_at_matmul)
-    log("main-path launches by (kernel, width, nbits or Lm, batch): " + json.dumps(
-        {",".join(map(str, k)): v for k, v in sorted(rec.counts.items())}))
-    return launches, slice_args
+    return launches, dict(cs=cs, sk=sk, pk=pk, ct=ct, ctv=ctv)
+
+
+def run_engine_ops(torch, cgp, port, main, rng):
+    """add_ciphertext_vectors, scal_ciphertext_vector and the batched
+    threshold combine on 64 of the main path's ciphertexts, against the
+    GMP host engine."""
+    cs, sk, pk, ct, ctv = (main[k] for k in ("cs", "sk", "pk", "ct", "ctv"))
+    M = cs.hsm2k.M
+    cts, others = ct.data[:ENGINE_N], ct.data[ENGINE_N:2 * ENGINE_N]
+    scal = [0, 1, M - 1] + [rng.getrandbits(K) for _ in range(ENGINE_N - 3)]
+    shares = cs.keygen(sk, 2, 3)
+    sh = [shares[pm][port.liss.share_index_for_party(pm, (0, 1), 3)] for pm in (0, 1)]
+    gmp = port.hostgmp.GmpEngine(cs.hsm2k)
+    phases = {}
+    rec = Recorder(torch, cgp)
+    rec.phase = "engine_ops"
+    cgp.reset_launches()
+    with rec:
+        t = time.perf_counter()
+        added = cs.add_ciphertext_vectors(pk, cts, others)
+        torch.cuda.synchronize()
+        phases["add_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        with TailCount() as tail:
+            scaled = cs.scal_ciphertext_vector(pk, scal, cts)
+            torch.cuda.synchronize()
+        phases["scal_s"] = time.perf_counter() - t
+        phases["scal_tail_iters"] = tail.n
+        pdrs = [gmp.part_decrypt_batch(s, scaled) for s in sh]
+        t = time.perf_counter()
+        with TailCount() as tail:
+            combined = cs.combine_part_decryption_results_vector(scaled, pdrs)
+            torch.cuda.synchronize()
+        phases["combine_s"] = time.perf_counter() - t
+        phases["combine_tail_iters"] = tail.n
+    launches = check_path_launches(cgp, rec, "engine-ops path")
+    if added != gmp.add_batch(cts, others):
+        fail("add_ciphertext_vectors differs from GMP's add_batch")
+    if scaled != gmp.scal_batch(scal, cts):
+        fail("scal_ciphertext_vector differs from GMP's scal_batch")
+    if combined != [s * v % M for s, v in zip(scal, ctv)]:
+        fail("the batched threshold combine gave wrong plaintexts")
+    phases["total_s"] = sum(v for k, v in phases.items() if k.endswith("_s"))
+    log(f"engine ops on {ENGINE_N} ciphertexts at sec={SEC} k={K}: add and scal "
+        f"bit-identical to GMP (scalars 0, 1, 2^{K} - 1 and random), combine of "
+        f"t=2 part-decryptions correct; phase seconds: "
+        + json.dumps({k: round(v, 3) for k, v in phases.items()}))
+    return launches
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_network(torch, cgp, port, rng):
+    """The 5-node threshold network in-process: a ct(4x4) . ct(4x4) Beaver
+    matmul and a tensor ADD through the compute node, CoFHE node 0 on the
+    card."""
+    from cofhe_tpu_torch.node import nodes, wire
+    from cofhe_tpu_torch.node.network_details import (CryptoSystemDetails,
+                                                      NodeDetails, NodeType)
+
+    phases = {}
+    t = time.perf_counter()
+    ports = [_free_port() for _ in range(5)]
+    setup_nd = NodeDetails("127.0.0.1", str(ports[0]), NodeType.SETUP_NODE)
+    details = CryptoSystemDetails(type="CoFHE_GPU", public_key="", security_level=SEC,
+                                  k=K, threshold=2, total_nodes=3)
+    servers, client, compute = [], None, None
+    try:
+        server, setup = nodes.make_setup_node(setup_nd, details, device="cuda")
+        server.run_in_thread()
+        servers.append(server)
+        for i, dev in zip(range(1, 4), ("cuda", "host", "host")):
+            nd = NodeDetails("127.0.0.1", str(ports[i]), NodeType.COFHE_NODE)
+            servers.append(nodes.make_cofhe_node(nd, setup_nd, device=dev))
+            servers[-1].run_in_thread()
+        nd = NodeDetails("127.0.0.1", str(ports[4]), NodeType.COMPUTE_NODE)
+        servers.append(nodes.make_compute_node(nd, setup_nd, device="cuda"))
+        servers[-1].run_in_thread()
+        node0, compute = servers[1].handler.__self__, servers[4].handler.__self__
+        if node0.cs.device != "cuda" or compute.cs.device != "cuda":
+            fail("CoFHE node 0 and the compute node must run on the card")
+        client = nodes.ClientNode(setup_nd, use_tls=False, device="cuda")
+        phases["start_s"] = time.perf_counter() - t
+
+        # node 0's part-decryptions: size, seconds and the kernels they launched
+        node0_calls = []
+        pd_orig = node0.cs.part_decrypt_tensor
+
+        def pd_spy(share, ct):
+            before, t0 = dict(cgp.LAUNCHES), time.perf_counter()
+            out = pd_orig(share, ct)
+            torch.cuda.synchronize()
+            node0_calls.append((len(ct.data), time.perf_counter() - t0, {
+                k: cgp.LAUNCHES[k] - before[k] for k in before}))
+            return out
+
+        node0.cs.part_decrypt_tensor = pd_spy
+        cs, pk = client.crypto_system, client.public_key
+        M = cs.hsm2k.M
+        n = NET_DIM
+        xv = [rng.randrange(M) for _ in range(n * n)]
+        yv = [rng.randrange(M) for _ in range(n * n)]
+        ct1 = cs.encrypt_tensor(pk, port.Tensor(xv, (n, n)))
+        ct2 = cs.encrypt_tensor(pk, port.Tensor(yv, (n, n)))
+        ser = cs.serialize_ciphertext_tensor
+
+        def request(op):
+            resp = client.compute(wire.ComputeRequest(
+                wire.ComputeOperationType.BINARY, op,
+                [wire.ComputeOperand(wire.DataType.TENSOR,
+                                     wire.DataEncryptionType.CIPHERTEXT, ser(c))
+                 for c in (ct1, ct2)]))
+            if resp.status != wire.Status.OK:
+                fail(f"the compute node answered {op.name} with an error: "
+                     f"{resp.data[:300]!r}")
+            return cs.deserialize_ciphertext_tensor(resp.data)
+
+        rec = Recorder(torch, cgp)
+        rec.phase = "network"
+        cgp.reset_launches()
+        with rec, TailCount() as tail:
+            t = time.perf_counter()
+            prod = request(wire.ComputeOperation.MULTIPLY)
+            phases["multiply_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            summed = request(wire.ComputeOperation.ADD)
+            phases["add_s"] = time.perf_counter() - t
+            torch.cuda.synchronize()
+        phases["tail_iters"] = tail.n
+        launches = check_path_launches(cgp, rec, "network path")
+        combo = compute.smpc._combo
+    finally:
+        if client is not None:
+            client.close()
+        if compute is not None:
+            compute.smpc.close()
+        for s in servers:
+            s.stop()
+
+    gmp = port.hostgmp.GmpEngine(setup.cs.hsm2k)
+    got = gmp.decrypt_batch(setup.sk, prod.data)
+    want = [sum(xv[i * n + j] * yv[j * n + k] for j in range(n)) % M
+            for i in range(n) for k in range(n)]
+    if prod.shape != (n, n) or got != want:
+        fail("the network's Beaver matmul decrypts to the wrong plaintexts")
+    if gmp.decrypt_batch(setup.sk, summed.data) != [(x + y) % M for x, y in zip(xv, yv)]:
+        fail("the network's tensor ADD decrypts to the wrong plaintexts")
+    if combo != (0, 1):
+        fail(f"the opening round ran on CoFHE nodes {combo}, not (0, 1)")
+    opened = [c for c in node0_calls if c[0] == OPENING_B]
+    if not opened or any(v <= 0 for v in opened[0][2].values()):
+        fail(f"CoFHE node 0 did not part-decrypt the {OPENING_B}-ciphertext opening "
+             f"on the card: {node0_calls}")
+    at_opening = {}
+    for key, v in rec.counts.items():
+        if key[3] == OPENING_B:
+            at_opening[key[0]] = at_opening.get(key[0], 0) + v
+    phases["node0_part_decrypt_s"] = opened[0][1]
+    phases["node0_launches"] = opened[0][2]
+    log(f"network (1 setup, 3 CoFHE, 1 compute node, t=2, n=3) at sec={SEC} k={K}: "
+        f"ct({n}x{n}) . ct({n}x{n}) Beaver matmul ({n ** 3} products, {OPENING_B} "
+        f"openings) and tensor ADD correct; shares combined {combo}; CoFHE node 0 "
+        f"answered on the card; launches at batch {OPENING_B} by kernel "
+        + json.dumps(at_opening) + "; phase seconds: "
+        + json.dumps({k: (round(v, 3) if isinstance(v, float) else v)
+                      for k, v in phases.items()}))
+    return launches
 
 
 # --------------------------------------------------------- the kernel table
@@ -603,6 +808,7 @@ def import_port():
               file=sys.stderr)
         return None
     from cofhe_tpu_torch.api import CryptoSystem
+    from cofhe_tpu_torch.core import liss
     from cofhe_tpu_torch.core.cl_hsm2k import CLHSM2k
     from cofhe_tpu_torch.ops import cuda_group, forms2, hostgmp, limb
     from cofhe_tpu_torch.ops.engine import TorchEngine
@@ -610,7 +816,7 @@ def import_port():
     from cofhe_tpu_torch.tensor import Tensor
 
     return SimpleNamespace(
-        CryptoSystem=CryptoSystem, CLHSM2k=CLHSM2k, cgp=cuda_group, f2m=forms2,
+        CryptoSystem=CryptoSystem, CLHSM2k=CLHSM2k, liss=liss, cgp=cuda_group, f2m=forms2,
         hostgmp=hostgmp, lb=limb, TorchEngine=TorchEngine, Tensor=Tensor,
         bform_from_forms=bform_from_forms, bform_to_forms=bform_to_forms)
 
@@ -642,6 +848,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    os.environ.update(NODE_ENV)  # read when the node modules are imported
     port = import_port()
     if port is None:
         return 1
@@ -680,8 +887,8 @@ def main() -> int:
     log(f"kernel checks: {time.perf_counter() - t:.1f} s")
 
     rec = Recorder(torch, cgp)
-    launches, _ = run_slice(torch, cgp, rec, port.CryptoSystem, port.Tensor,
-                            hostgmp.GmpEngine, rng)
+    launches, main_path = run_slice(torch, cgp, rec, port.CryptoSystem, port.Tensor,
+                                    hostgmp.GmpEngine, rng)
     # K1 on the decrypt steps' d > 1 lanes, where cg is not unique mod m and
     # only the reference's divstep sequence gives the plain version's cg
     dec_lanes = decrypt_k1_lanes(lb, rec)
@@ -691,6 +898,14 @@ def main() -> int:
         for need_u in (False, True):
             check_k1(torch, cgp, lb, rng, W, nbits, need_u, RAGGED_B,
                      nbits - 40, extra=pairs)
+
+    t = time.perf_counter()
+    by_path = {"main": launches,
+               "engine_ops": run_engine_ops(torch, cgp, port, main_path, rng)}
+    log(f"engine-ops phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    by_path["network"] = run_network(torch, cgp, port, rng)
+    log(f"network phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     table = []
@@ -707,7 +922,9 @@ def main() -> int:
 
     def entry(name, route_src, replaces, r):
         return {"name": name, "route": "cuda", "source": route_src,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces,
+                "launches": sum(p[name] for p in by_path.values()),
+                "launches_by_path": {k: p[name] for k, p in by_path.items()},
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": None}

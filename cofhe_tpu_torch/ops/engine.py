@@ -1,10 +1,13 @@
 """TorchEngine: the GPU compute path behind the port's CryptoSystem facade
-(torch port of the slice of cofhe_tpu/ops/engine.py that the main path
-runs).
+(torch port of cofhe_tpu/ops/engine.py, less its mesh paths).
 
 Every batched op comes down to `CG.compose2` on int32 limb tensors:
 
   * compose_forms_batch - one batched composition (the batched encrypt);
+  * add_batch           - one composition over the stacked (c1, c2) rows of
+                          both operands;
+  * scal_batch          - the signed-digit Yao ladder (ops/nupow2.py) over
+                          the stacked rows, per-element host-recoded digits;
   * scal_matmul         - ct(n, m) x pt(m, p) through the job stream of
                           ops/matmul2.py, in row chunks of about
                           `MATMUL_LANES` exponent lanes: per chunk the
@@ -13,11 +16,15 @@ Every batched op comes down to `CG.compose2` on int32 limb tensors:
                           summed over chunks, in `last_matmul_phases`);
   * part_decrypt_batch / decrypt_batch - the shared-exponent wNAF ladder
                           (the exponent is the host-known share or secret
-                          key), then the host-side closed-form dlog.
+                          key), then the host-side closed-form dlog;
+  * combine_batch       - the threshold combine: lambda = (1, -1, ..., -1)
+                          on the host, the composition tree over parties
+                          (parallel/sharded.py), c2 * d^-1, the host dlog.
 
 Tensors live on the engine's device: "cuda" (the default of the facade)
 runs the Hopper kernels, "cpu" runs their plain torch versions. Results
-are bit-exact with the host oracle (unique reduced forms).
+are bit-exact with the host oracle (unique reduced forms). Ciphertext
+batches stack 2n rows, so they run in chunks of MAX_BATCH / 2.
 """
 
 from __future__ import annotations
@@ -29,13 +36,15 @@ import torch
 
 from ..core.cl_hsm2k import CipherText, CLHSM2k
 from ..core.qfi import neg as qneg, nudupl as qnudupl, reduce_form
+from ..parallel.sharded import _scan_tree_compose
 from ..tensor import Tensor
 from . import limb as lb
-from .forms import BForm, bform_from_forms, bform_to_forms
+from .forms import BForm, bform_from_forms, bform_neg, bform_to_forms
 from .forms2 import CG, CGCtx
 from .matmul2 import get_plan, make_chain_stack, make_ladder, make_phase2
-from .nupow2 import (identity_bform2, make_wnaf_bank, nwind_for_bits,
-                     signed_windows, wnaf_digits, wnaf_segment)
+from .nupow2 import (identity_bform2, make_wnaf_bank, nupow_yao2,
+                     nwind_for_bits, signed_windows, wnaf_digits,
+                     wnaf_segment)
 
 YAO_W = 4   # signed-digit window of the matmul's per-element exponents
 WNAF_W = 5  # wNAF window of the shared decrypt exponent
@@ -91,6 +100,30 @@ class TorchEngine:
         padded = list(forms) + [self._identity_form] * (batch - len(forms))
         return bform_from_forms(padded, self.L, self.device)
 
+    def _cts_to_bform(self, cts) -> tuple[BForm, int, int]:
+        """Stack [c1s..., c2s...] into one identity-padded batch."""
+        n = len(cts)
+        batch = _bucket(2 * n)
+        forms = [ct.c1 for ct in cts] + [ct.c2 for ct in cts]
+        return self._forms_to_bform(forms, batch), n, batch
+
+    @staticmethod
+    def _bform_to_cts(bf: BForm, n: int):
+        out = bform_to_forms(bf)
+        return [CipherText(out[i], out[n + i]) for i in range(n)]
+
+    @staticmethod
+    def _digits_for(scalars, rows: int, nwind: int, row_map) -> np.ndarray:
+        """(nwind, rows) signed digits; row_map[r] indexes scalars, or is -1
+        for an identity-pad row (digit 0)."""
+        recoded = np.zeros((len(scalars), nwind), dtype=np.int32)
+        for i, s in enumerate(scalars):
+            recoded[i] = signed_windows(int(s), YAO_W, nwind)
+        out = np.zeros((rows, nwind), dtype=np.int32)
+        live = row_map >= 0
+        out[live] = recoded[row_map[live]]
+        return np.ascontiguousarray(out.T)
+
     @staticmethod
     def _chunks(n: int, step: int):
         return [(s, min(s + step, n)) for s in range(0, n, step)]
@@ -105,6 +138,52 @@ class TorchEngine:
             bf = self.cg.compose2(self._forms_to_bform(forms1[s:e], batch),
                                   self._forms_to_bform(forms2[s:e], batch))
             out.extend(bform_to_forms(bf)[:e - s])
+        return out
+
+    @torch.inference_mode()
+    def add_batch(self, cts1, cts2):
+        """Elementwise ciphertext addition: (c1 * c1', c2 * c2')."""
+        out = []
+        for s, e in self._chunks(len(cts1), MAX_BATCH // 2):
+            bf1, n, _ = self._cts_to_bform(cts1[s:e])
+            bf2, _, _ = self._cts_to_bform(cts2[s:e])
+            out.extend(self._bform_to_cts(self.cg.compose2(bf1, bf2), n))
+        return out
+
+    @torch.inference_mode()
+    def scal_batch(self, scalars, cts):
+        """Elementwise ct^s for non-negative scalars below 2^k. Layout of a
+        chunk: [c1 x n, c2 x n, identity pad]; pad rows take digit 0."""
+        nwind = nwind_for_bits(self.hsm.k, YAO_W)
+        out = []
+        for s, e in self._chunks(len(cts), MAX_BATCH // 2):
+            bf, n, batch = self._cts_to_bform(cts[s:e])
+            row_map = np.full(batch, -1, dtype=np.int64)
+            row_map[:n] = np.arange(n)
+            row_map[n:2 * n] = np.arange(n)
+            digits = self._digits_for(list(scalars[s:e]), batch, nwind, row_map)
+            out.extend(self._bform_to_cts(
+                nupow_yao2(self.cg, bf, digits, w=YAO_W), n))
+        return out
+
+    @torch.inference_mode()
+    def combine_batch(self, cts, pdrs_per_party):
+        """final_decrypt over a batch: d = d_0 * (d_1 * ... * d_{t-1})^-1
+        (lambda = (1, -1, ..., -1), applied on the host), then
+        m = dlog(c2 * d^-1) on the host."""
+        t = len(pdrs_per_party)
+        out = []
+        for s, e in self._chunks(len(cts), MAX_BATCH):
+            batch = _bucket(e - s)
+            rows = [pdrs_per_party[0][s:e]] + [
+                [reduce_form(qneg(f)) for f in p[s:e]]
+                for p in pdrs_per_party[1:]]
+            stacks = [self._forms_to_bform(r, batch) for r in rows]
+            stacked = BForm(*(torch.stack(xs) for xs in zip(*stacks)))
+            d = _scan_tree_compose(self.cg, stacked, t)
+            c2 = self._forms_to_bform([ct.c2 for ct in cts[s:e]], batch)
+            fm = bform_to_forms(self.cg.compose2(c2, bform_neg(d)))[:e - s]
+            out.extend(self.hsm.dlog_in_F(f) for f in fm)
         return out
 
     @torch.inference_mode()

@@ -1,8 +1,11 @@
-"""Batched exponentiation helpers on the v2 compose (torch port of the
-subset of cofhe_tpu/ops/nupow2.py that the matmul and decrypt paths use).
+"""Batched exponentiation helpers on the v2 compose (torch port of
+cofhe_tpu/ops/nupow2.py, less the unused nupow_shared_wnaf2).
 
 * signed radix-2^w recoding of per-element exponents (host side; the
   matmul's Yao ladder reads these digits as job data);
+* the elementwise signed-digit Yao ladder of scal_batch (`nupow_yao2`): a
+  bank of 2^(w-1)+1 slots updated by a masked select, one compose2 and w
+  nudupl2 a window, then the suffix-product finalization;
 * the shared-exponent wNAF ladder of part_decrypt / decrypt: an odd-power
   bank, then one nudupl per digit and one compose per nonzero digit. The
   digit schedule is host data, so the per-digit branch is a Python `if`.
@@ -12,10 +15,11 @@ Every step ends on reduced forms, so results equal core.qfi.nupow.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import limb as lb
-from .forms import BForm, bform_neg
+from .forms import BForm, bform_neg, bform_select
 from .forms2 import CG
 
 
@@ -49,6 +53,51 @@ def signed_windows(e: int, w: int, nwind: int) -> list[int]:
 def nwind_for_bits(bits: int, w: int) -> int:
     """Window count covering `bits`-bit exponents incl. the recode carry."""
     return (bits + w) // w
+
+
+def nupow_yao2(cg: CG, base: BForm, digits, w: int = 4) -> BForm:
+    """base[i] ^ e_i for host-recoded signed digits.
+
+    base:   (B, L) reduced forms.
+    digits: (nwind, B) integers in [-2^(w-1), 2^(w-1)), from signed_windows.
+
+    Window t composes chain = base^(2^(w t)) (inverted for a negative
+    digit) into bank slot |d|; a digit-0 lane composes into slot 0, which
+    the finalization never reads, so every lane runs the same steps. Then
+    R = prod_{v=1}^{half} bank[v]^v by suffix products: T_v = bank[half]
+    * ... * bank[v], R accumulates T_v.
+    """
+    dev = cg.device
+    digits = torch.as_tensor(np.asarray(digits, dtype=np.int64), device=dev)
+    nwind, B = digits.shape
+    if base.a.shape[0] != B:
+        raise ValueError(f"base batch {base.a.shape[0]} != digit lanes {B}")
+    half = 1 << (w - 1)
+    S = half + 1
+    ident = identity_bform2(cg, B)
+    bank = BForm(*(x[None].expand((S,) + x.shape).clone() for x in ident))
+    slots = torch.arange(S, device=dev)[:, None]
+    lanes = torch.arange(B, device=dev)
+    chain = base
+    for t in range(nwind):
+        d = digits[t]
+        slot = d.abs()
+        term = bform_select(d < 0, bform_neg(chain), chain)
+        comp = cg.compose2(BForm(*(x[slot, lanes] for x in bank)), term)
+        bank = bform_select(slots == slot[None, :],  # (S, B)
+                            BForm(*(x[None] for x in comp)), bank)
+        if t + 1 < nwind:  # the last window's doublings are never read
+            for _ in range(w):
+                chain = cg.nudupl2(chain)
+
+    def slot_of(v):
+        return BForm(*(x[v] for x in bank))
+
+    T = R = slot_of(half)
+    for v in range(half - 1, 0, -1):
+        T = cg.compose2(T, slot_of(v))
+        R = cg.compose2(R, T)
+    return R
 
 
 def wnaf_digits(e: int, w: int) -> list[int]:
