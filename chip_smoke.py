@@ -36,17 +36,28 @@
    CoFHE node 0 must have answered the opening round on the card (the
    compute node's share combination is (0, 1), and every kernel launched
    inside node 0's part-decryption).
-   Each path (main, engine ops, network) is driven with the launch counts
-   set to 0 just before it and read just after; every kernel must launch
-   in each.
-5. The kernel table: every kernel at every recorded main-path shape and
+5. The mesh at sec=128, k=128: two ranks of
+   cofhe_tpu_torch.tools.mesh_check (torch.distributed; NCCL with a card
+   each when there are two, else gloo with both on one card), a dp=1 x
+   tp=2 mesh, a TorchEngine(mesh=...) on each. They run the main path's
+   scal_matmul (each rank ladders its 32-column half at 8192 lanes and the
+   2048-form banks meet in an all_gather), the engine-ops path's 64 adds
+   row-sharded, and the t=2 threshold combine of 16 of the main path's
+   ciphertexts over tp (part-decryptions from GMP). Both ranks must return
+   the same ciphertexts, bit-identical to the single-card matmul and adds,
+   the combine the plaintexts; each rank's K2 launches must show the
+   ladder at 8192 lanes and none at 16384, and its gathers must be > 0.
+   Each path (main, engine ops, network, mesh) is driven with the launch
+   counts set to 0 just before it and read just after (on the mesh: each
+   rank's, summed); every kernel must launch in each.
+6. The kernel table: every kernel at every recorded main-path shape and
    batch, checked against its plain versions (K1 also against Python's
    gcd and the Bezout identity), with its trip counts (K1 in groups and
    in divsteps), time and bound (also at the earlier kernels' per-limb
    operation counts: the 13-divstep K1, the 24-bit-digit K2, the
    2^12-budget K3); the device time of one compose2 at 128 lanes split by
    kernel.
-6. Prints the card's name and power limit, one JSON line with each
+7. Prints the card's name and power limit, one JSON line with each
    kernel's numbers (launches in all and by path), and as the last line
    {"ok": true, "device": {...}}.
 
@@ -75,6 +86,10 @@ KERNEL_B = 16384   # lanes of one matmul ladder chunk
 RAGGED_B = 1001
 SMALL_B = 128      # lanes of a decrypt step
 ENGINE_N = 64      # ciphertexts of the engine-ops phase
+MESH_RANKS = 2     # the mesh path: dp = 1 x tp = 2
+MESH_COMBINE_N = 16  # ciphertexts of its threshold combine
+MESH_LADDER_B = 2 * N_ROWS * (M_INNER // MESH_RANKS) * P_COLS  # 8192 a rank
+MESH_TIMEOUT_S = 420  # a rank's whole run
 NET_DIM = 4        # the network's ct(4x4) . ct(4x4) Beaver matmul
 OPENING_B = 2 * NET_DIM ** 3  # ciphertexts of its opening round
 # the node runtime's RPC and client timeouts (120 s by default) must cover
@@ -390,13 +405,15 @@ def check_path_launches(cgp, rec, path: str) -> dict:
 
 def run_slice(torch, cgp, rec, CryptoSystem, Tensor, GmpEngine, rng):
     """encrypt -> homomorphic matmul -> decrypt at sec=128, k=128."""
-    phases = {}
-    t0 = time.perf_counter()
-    cs = CryptoSystem(SEC, K, device="cuda", seed=b"chip-smoke")
-    sk = cs.keygen()
-    pk = cs.keygen(sk)
+    from cofhe_tpu_torch.utils.benchmark import PhaseTimer
+
+    timer = PhaseTimer("cuda")
+    phases = timer.phases
+    with timer("setup_keygen_s"):
+        cs = CryptoSystem(SEC, K, device="cuda", seed=b"chip-smoke")
+        sk = cs.keygen()
+        pk = cs.keygen(sk)
     M = cs.hsm2k.M
-    phases["setup_keygen_s"] = time.perf_counter() - t0
     ctv = [rng.randrange(M) for _ in range(N_ROWS * M_INNER)]
     sv = [rng.randrange(M) for _ in range(M_INNER * P_COLS)]
     pt = Tensor(sv, (M_INNER, P_COLS))
@@ -404,28 +421,23 @@ def run_slice(torch, cgp, rec, CryptoSystem, Tensor, GmpEngine, rng):
     cgp.reset_launches()
     with rec:
         rec.phase = "encrypt"
-        t = time.perf_counter()
-        ct = cs.encrypt_tensor(pk, Tensor(ctv, (N_ROWS, M_INNER)))
-        torch.cuda.synchronize()
-        phases["encrypt_s"] = time.perf_counter() - t
+        with timer("encrypt_s"):
+            ct = cs.encrypt_tensor(pk, Tensor(ctv, (N_ROWS, M_INNER)))
+            torch.cuda.synchronize()
         # the facade draws the matmul's Enc(0) from its generator: a copy of
         # the generator replays it for the host check below
         rand_at_matmul = copy.deepcopy(cs.rand_gen)
         rec.phase = "matmul"
-        t = time.perf_counter()
-        with TailCount() as tail:
+        with timer("matmul_s"), TailCount() as tail:
             res = cs.scal_ciphertext_tensors(pk, pt, ct)
             torch.cuda.synchronize()
-        phases["matmul_s"] = time.perf_counter() - t
         phases["matmul_tail_iters"] = tail.n
         phases.update({f"matmul_{k}": v
                        for k, v in cs._engine.last_matmul_phases.items()})
         rec.phase = "decrypt"
-        t = time.perf_counter()
-        with TailCount() as tail:
+        with timer("decrypt_s"), TailCount() as tail:
             dec = cs.decrypt_tensor(sk, res)
             torch.cuda.synchronize()
-        phases["decrypt_s"] = time.perf_counter() - t
         phases["decrypt_tail_iters"] = tail.n
     launches = check_path_launches(cgp, rec, "main path")
 
@@ -442,26 +454,27 @@ def run_slice(torch, cgp, rec, CryptoSystem, Tensor, GmpEngine, rng):
 
     # bit-identity with the GMP host backend: ct row 0 x pt[:, :2] with the
     # same Enc(0) must give the main path's res[0, 0] and res[0, 1]
-    t = time.perf_counter()
-    zero = cs.hsm2k.encrypt(pk, 0, copy.deepcopy(rand_at_matmul))
-    row0 = Tensor([ct.at(0, j) for j in range(M_INNER)], (1, M_INNER))
-    pt2 = Tensor([sv[j * P_COLS + kk] for j in range(M_INNER) for kk in range(2)],
-                 (M_INNER, 2))
-    host_out = GmpEngine(cs.hsm2k).scal_matmul(pt2, row0, zero)
-    if list(host_out.data) != [res.at(0, 0), res.at(0, 1)]:
-        fail("matmul ciphertexts differ from the GMP host backend's")
-    phases["gmp_check_s"] = time.perf_counter() - t
+    with timer("gmp_check_s"):
+        zero = cs.hsm2k.encrypt(pk, 0, copy.deepcopy(rand_at_matmul))
+        row0 = Tensor([ct.at(0, j) for j in range(M_INNER)], (1, M_INNER))
+        pt2 = Tensor([sv[j * P_COLS + kk] for j in range(M_INNER) for kk in range(2)],
+                     (M_INNER, 2))
+        host_out = GmpEngine(cs.hsm2k).scal_matmul(pt2, row0, zero)
+        if list(host_out.data) != [res.at(0, 0), res.at(0, 1)]:
+            fail("matmul ciphertexts differ from the GMP host backend's")
     log(f"slice ct({N_ROWS}x{M_INNER}) x pt({M_INNER}x{P_COLS}) at sec={SEC} k={K}: "
         f"{N_ROWS * P_COLS} plaintexts correct, every output form reduced, "
         f"2 ciphertexts bit-identical to GMP")
     log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
-    return launches, dict(cs=cs, sk=sk, pk=pk, ct=ct, ctv=ctv)
+    return launches, dict(cs=cs, sk=sk, pk=pk, ct=ct, ctv=ctv, pt=pt, res=res, zero=zero)
 
 
 def run_engine_ops(torch, cgp, port, main, rng):
     """add_ciphertext_vectors, scal_ciphertext_vector and the batched
     threshold combine on 64 of the main path's ciphertexts, against the
     GMP host engine."""
+    from cofhe_tpu_torch.utils.benchmark import PhaseTimer
+
     cs, sk, pk, ct, ctv = (main[k] for k in ("cs", "sk", "pk", "ct", "ctv"))
     M = cs.hsm2k.M
     cts, others = ct.data[:ENGINE_N], ct.data[ENGINE_N:2 * ENGINE_N]
@@ -469,27 +482,23 @@ def run_engine_ops(torch, cgp, port, main, rng):
     shares = cs.keygen(sk, 2, 3)
     sh = [shares[pm][port.liss.share_index_for_party(pm, (0, 1), 3)] for pm in (0, 1)]
     gmp = port.hostgmp.GmpEngine(cs.hsm2k)
-    phases = {}
+    timer = PhaseTimer("cuda")
+    phases = timer.phases
     rec = Recorder(torch, cgp)
     rec.phase = "engine_ops"
     cgp.reset_launches()
     with rec:
-        t = time.perf_counter()
-        added = cs.add_ciphertext_vectors(pk, cts, others)
-        torch.cuda.synchronize()
-        phases["add_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        with TailCount() as tail:
+        with timer("add_s"):
+            added = cs.add_ciphertext_vectors(pk, cts, others)
+            torch.cuda.synchronize()
+        with timer("scal_s"), TailCount() as tail:
             scaled = cs.scal_ciphertext_vector(pk, scal, cts)
             torch.cuda.synchronize()
-        phases["scal_s"] = time.perf_counter() - t
         phases["scal_tail_iters"] = tail.n
         pdrs = [gmp.part_decrypt_batch(s, scaled) for s in sh]
-        t = time.perf_counter()
-        with TailCount() as tail:
+        with timer("combine_s"), TailCount() as tail:
             combined = cs.combine_part_decryption_results_vector(scaled, pdrs)
             torch.cuda.synchronize()
-        phases["combine_s"] = time.perf_counter() - t
         phases["combine_tail_iters"] = tail.n
     launches = check_path_launches(cgp, rec, "engine-ops path")
     if added != gmp.add_batch(cts, others):
@@ -503,6 +512,64 @@ def run_engine_ops(torch, cgp, port, main, rng):
         f"bit-identical to GMP (scalars 0, 1, 2^{K} - 1 and random), combine of "
         f"t=2 part-decryptions correct; phase seconds: "
         + json.dumps({k: round(v, 3) for k, v in phases.items()}))
+    return launches, dict(cts=cts, others=others, added=added, shares=sh)
+
+
+def run_mesh(torch, cgp, port, main, ops):
+    """Two ranks of tools/mesh_check on a dp=1 x tp=2 mesh: the main
+    path's matmul, the engine-ops path's adds and a t=2 combine over tp,
+    each held to the single-card results. Returns the launches summed over
+    the ranks."""
+    from cofhe_tpu_torch.tools import mesh_check
+
+    cs, ct = main["cs"], main["ct"]
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= MESH_RANKS else "gloo"
+    gmp = port.hostgmp.GmpEngine(cs.hsm2k)
+    comb_cts = ct.data[:MESH_COMBINE_N]
+    pdrs = [gmp.part_decrypt_batch(s, comb_cts) for s in ops["shares"]]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "mesh_check")
+    os.makedirs(out_dir, exist_ok=True)
+    inputs = os.path.join(out_dir, "inputs.pkl")
+    mesh_check.write_inputs(
+        inputs, SEC, K, cs.hsm2k.p, add=(ops["cts"], ops["others"]),
+        matmul=(ct, main["pt"], main["zero"]), combine=(comb_cts, pdrs),
+        expect={"matmul": main["res"].data, "add": ops["added"],
+                "combine": main["ctv"][:MESH_COMBINE_N]})
+    log(f"mesh: {MESH_RANKS} ranks of tools.mesh_check, dp=1 x tp=2, backend "
+        f"{backend}, cards " + ("one each" if backend == "nccl" else "cuda:0 shared")
+        + f" ({cards} visible)")
+    t = time.perf_counter()
+    try:
+        outs = mesh_check.launch(MESH_RANKS, inputs, out_dir, device="cuda",
+                                 backend=backend, dp=1, tp=MESH_RANKS,
+                                 timeout_s=MESH_TIMEOUT_S)
+    except mesh_check.MeshCheckError as e:
+        log(str(e))
+        fail("a mesh rank failed (its output is above)")
+    wall = time.perf_counter() - t
+    problems = mesh_check.check_outputs(outs, inputs)
+    if problems:
+        fail("mesh: " + "; ".join(problems))
+    for o in outs:
+        k2 = {k: v for k, v in o["calls"].items() if k.startswith("mod_topdown@")}
+        if not k2.get(f"mod_topdown@{MESH_LADDER_B}") or f"mod_topdown@{KERNEL_B}" in k2:
+            fail(f"mesh rank {o['rank']}: K2 launches by batch {k2} do not show "
+                 f"the shard's {MESH_LADDER_B}-lane ladder")
+    launches = {name: sum(o["launches"][name] for o in outs) for name in cgp.KERNELS}
+    for name, n in launches.items():
+        if n <= 0 or any(o["launches"][name] <= 0 for o in outs):
+            fail(f"kernel {name} was not launched on every mesh rank")
+    for o in outs:
+        log(f"mesh rank {o['rank']} at {o['coord']}: launches "
+            + json.dumps(o["launches"]) + ", by kernel@batch " + json.dumps(o["calls"])
+            + f", gathers {o['gathers']}, seconds "
+            + json.dumps({k: round(v, 3) for k, v in o["seconds"].items()})
+            + ", matmul " + json.dumps({k: round(v, 3) for k, v in o["matmul_phases"].items()}))
+    log(f"mesh ({backend}, {MESH_RANKS} ranks) at sec={SEC} k={K}: matmul, {ENGINE_N} "
+        f"adds and the t=2 combine of {MESH_COMBINE_N} bit-identical to the single-card "
+        f"path on both ranks; wall {wall:.1f} s; launches summed " + json.dumps(launches))
     return launches
 
 
@@ -900,12 +967,15 @@ def main() -> int:
                      nbits - 40, extra=pairs)
 
     t = time.perf_counter()
-    by_path = {"main": launches,
-               "engine_ops": run_engine_ops(torch, cgp, port, main_path, rng)}
+    by_path = {"main": launches}
+    by_path["engine_ops"], ops = run_engine_ops(torch, cgp, port, main_path, rng)
     log(f"engine-ops phase: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     by_path["network"] = run_network(torch, cgp, port, rng)
     log(f"network phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    by_path["mesh"] = run_mesh(torch, cgp, port, main_path, ops)
+    log(f"mesh phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     table = []

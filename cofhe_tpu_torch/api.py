@@ -1,6 +1,6 @@
 """CryptoSystem facade of the port: the operation surface of the reference's
 `CryptoSystemConcept` (cofhe.hpp:18-75) as the JAX package's
-cofhe_tpu/api.py has it, less compact mode.
+cofhe_tpu/api.py has it.
 
 Element/vector/tensor variants of keygen / encrypt / decrypt / part_decrypt /
 combine / add / scal / negate / plaintext arithmetic / fixed-point codec /
@@ -12,6 +12,13 @@ serialization. Batched work dispatches to an engine chosen by `device`:
                        versions (the tests' path);
   * "host"           - the GMP host backend (ops/hostgmp.py GmpEngine);
                        raises when it does not build.
+
+With `mesh` (parallel/sharded.py) the TorchEngine runs SPMD over the ranks
+of a torch.distributed process group. `compact=True` builds no engine: the
+compact variant's c1 lives in Cl(Delta_K) and its c2 in Cl(Delta), and no
+single-discriminant batch holds both, so every op runs element by element
+on the host, as in the JAX package. It is the one path of the port that
+does not run on the card.
 
 Ciphertexts and results are bit-identical across devices, and with the JAX
 package's CryptoSystem for the same seed (unique reduced forms).
@@ -53,34 +60,34 @@ class CryptoSystem:
 
     def __init__(self, security_level: int, k: int, compact: bool = False,
                  device: str = "cuda", seed: bytes | None = None,
-                 p: int | None = None, rerandomize: str = "none"):
+                 p: int | None = None, mesh=None, rerandomize: str = "none"):
         """rerandomize: fold a fresh Enc(0) into every homomorphic add/scal
         result - "none" (reference default: the macros are compiled out),
         "shared" (one Enc(0) per batched op, the
         ADD_RANDOMNESS_IN_HOMOMORPHIC_OPERATIONS semantics), or "per_op"
         (fresh randomness per element, DIFFERENT_RANDOMNESS_FOR_EACH_
         OPERATION; reference cpu_cryptosystem_vector_ops.inl:1-2,65-92)."""
-        if compact:
-            raise NotImplementedError(
-                "compact=True is not ported yet (ROADMAP.md queue 1, compact "
-                "mode): the JAX package runs it element-level on the host")
         if rerandomize not in ("none", "shared", "per_op"):
             raise ValueError("rerandomize must be none|shared|per_op")
-        self.hsm2k = CLHSM2k(security_level, k, p=p)
+        self.hsm2k = CLHSM2k(security_level, k, compact_variant=compact, p=p)
         self.sec_level = security_level
         self.k = k
         self.codec = FixedPointCodec(k)
         self.rand_gen = RandGen(seed)
         self.device = device
         self.rerandomize = rerandomize
-        if device == "host":
+        if compact:
+            # mixed Cl(Delta_K) / Cl(Delta) forms: element level on the host
+            # (the hsm2k routes each group's ops to its own GMP backend)
+            self._engine = None
+        elif device == "host":
             from .ops.hostgmp import GmpEngine
 
             self._engine = GmpEngine(self.hsm2k)
         else:
             from .ops.engine import TorchEngine
 
-            self._engine = TorchEngine(self.hsm2k, device=device)
+            self._engine = TorchEngine(self.hsm2k, device=device, mesh=mesh)
 
     # ------------------------------------------------------------------ keys
     def keygen(self, *args):
@@ -128,7 +135,12 @@ class CryptoSystem:
             zeros = [self.hsm2k.encrypt(pk, 0, self.rand_gen)] * len(cts)
         else:  # per_op: fresh randomness per element
             zeros = [self.hsm2k.encrypt(pk, 0, self.rand_gen) for _ in cts]
-        return self._engine.add_batch(cts, zeros)
+        return self._add_batch(cts, zeros)
+
+    def _add_batch(self, cts1, cts2) -> list:
+        if self._engine is not None:
+            return self._engine.add_batch(list(cts1), list(cts2))
+        return [self.hsm2k.add_ciphertexts(a, b) for a, b in zip(cts1, cts2)]
 
     def negate_ciphertext(self, pk: Form, ct: CipherText) -> CipherText:
         # the reference scales by make_plaintext(-1) = 2^k - 1, a full k-bit
@@ -166,17 +178,22 @@ class CryptoSystem:
         return self._encrypt_batch(pk, list(pts))
 
     def decrypt_vector(self, sk: int, cts: Sequence[CipherText]) -> list[int]:
-        return self._engine.decrypt_batch(sk, list(cts))
+        if self._engine is not None:
+            return self._engine.decrypt_batch(sk, list(cts))
+        return [self.hsm2k.decrypt(sk, ct) for ct in cts]
 
     def part_decrypt_vector(self, sks: int,
                             cts: Sequence[CipherText]) -> list[Form]:
-        return self._engine.part_decrypt_batch(sks, list(cts))
+        if self._engine is not None:
+            return self._engine.part_decrypt_batch(sks, list(cts))
+        return [self.hsm2k.part_decrypt(ct, sks) for ct in cts]
 
     def combine_part_decryption_results_vector(self, cts,
                                                pdrs_per_party) -> list[int]:
         """pdrs_per_party: list over parties of per-element PDR lists. From
         the engine's minimum batch on, the TorchEngine's batched combine
-        tree; below it, or on the host engine, element-level host code."""
+        tree; below it, on the host engine or without an engine (compact),
+        element-level host code."""
         if hasattr(self._engine, "combine_batch") \
                 and len(cts) >= self._engine.min_batch_encrypt:
             return self._engine.combine_batch(
@@ -187,7 +204,7 @@ class CryptoSystem:
     def add_ciphertext_vectors(self, pk, ct1, ct2) -> list[CipherText]:
         if len(ct1) != len(ct2):
             raise ValueError("vector sizes must be equal")
-        return self._rerand(pk, self._engine.add_batch(list(ct1), list(ct2)))
+        return self._rerand(pk, self._add_batch(ct1, ct2))
 
     def scal_ciphertext_vector(self, pk, s, cts) -> list[CipherText]:
         if isinstance(s, (list, tuple)):
@@ -198,7 +215,12 @@ class CryptoSystem:
             scalars = [int(s)] * len(cts)
         if any(x < 0 for x in scalars):
             raise ValueError("plaintext scalar must be non-negative")
-        return self._rerand(pk, self._engine.scal_batch(scalars, list(cts)))
+        if self._engine is not None:
+            out = self._engine.scal_batch(scalars, list(cts))
+        else:
+            out = [self.hsm2k.scal_ciphertext(ct, x)
+                   for x, ct in zip(scalars, cts)]
+        return self._rerand(pk, out)
 
     # --------------------------------------------------------------- tensors
     def encrypt_tensor(self, pk: Form, pt: Tensor) -> Tensor:
@@ -257,7 +279,25 @@ class CryptoSystem:
         if any(x < 0 for x in s.data):
             raise ValueError("plaintext scalar must be non-negative")
         zero = self.encrypt(pk, 0)
-        return self._engine.scal_matmul(s, cts, zero)
+        if self._engine is not None:
+            return self._engine.scal_matmul(s, cts, zero)
+        return self._scal_matmul_host(s, cts, zero)
+
+    def _scal_matmul_host(self, s: Tensor, cts: Tensor,
+                          zero: CipherText) -> Tensor:
+        """Element-level matmul (compact mode): each row sum is seeded with
+        Enc(0) and accumulates ct[i,j]^s[j,k] in j order."""
+        n, m = cts.shape
+        _, p = s.shape
+        res = []
+        for i in range(n):
+            for kk in range(p):
+                acc = zero
+                for j in range(m):
+                    acc = self.hsm2k.add_ciphertexts(
+                        acc, self.hsm2k.scal_ciphertext(cts.at(i, j), s.at(j, kk)))
+                res.append(acc)
+        return Tensor(res, (n, p))
 
     def negate_ciphertext_tensor(self, pk, ct: Tensor) -> Tensor:
         # group inversion per element (see negate_ciphertext)
@@ -284,12 +324,17 @@ class CryptoSystem:
         """Shared-randomness batch encryption (reference encrypt_vector,
         cpu_cryptosystem_vector_ops.inl:4-18): one r per batch, c1 = h^r and
         pk^r on the host, the per-element c2 = pk^r * f^m composes batched
-        on the engine (element-level on the host below its minimum
-        batch)."""
+        on the engine (element-level on the host below its minimum batch
+        or without an engine). Compact: pk lives in Cl(Delta_K), so pk^r is
+        taken there and lifted once."""
         r = self.rand_gen.random_mpz(self.hsm2k.encrypt_randomness_bound())
         c1 = self.hsm2k.power_of_h(r)
-        pkr = self.hsm2k.nupow(pk, r)
-        if len(pts) >= getattr(self._engine, "min_batch_encrypt", 2):
+        if self.hsm2k.compact_variant():
+            pkr = self.hsm2k._lift_pow(self.hsm2k._nupowK(pk, r))
+        else:
+            pkr = self.hsm2k.nupow(pk, r)
+        if self._engine is not None \
+                and len(pts) >= getattr(self._engine, "min_batch_encrypt", 2):
             fms = [self.hsm2k.power_of_f(pt % self.hsm2k.M) for pt in pts]
             c2s = self._engine.compose_forms_batch([pkr] * len(pts), fms)
             return [CipherText(c1, c2) for c2 in c2s]
@@ -298,7 +343,8 @@ class CryptoSystem:
 
     # --------------------------------------------------------- serialization
     def serialize(self) -> str:
-        return f"CPUCryptoSystem {self.sec_level} {self.k} 0"
+        return (f"CPUCryptoSystem {self.sec_level} {self.k} "
+                f"{int(self.hsm2k.compact_variant())}")
 
     @staticmethod
     def deserialize(data: str, device: str = "cuda") -> "CryptoSystem":

@@ -10,9 +10,11 @@ Defaults mirror examples/node.cpp:30-36: sec=128, k=256 (k=32 with --toy for
 fast local runs), threshold=2, total CoFHE nodes=3. client_node performs one
 ciphertext multiply + threshold decrypt and prints timings. `--device`
 picks the node's engine: cuda (the default, or $COFHE_DEVICE), cpu (the
-kernels' plain torch versions) or host (GMP). The port's copy of
-cofhe_tpu/node/cli.py, less `--distributed` (multi-card nodes are not
-ported yet).
+kernels' plain torch versions) or host (GMP). `--distributed
+coordinator:port,nproc,pid` joins this process to a torch.distributed
+process group first (parallel/distributed.py), as the JAX package's CLI
+joins jax.distributed; the node's engine gets no mesh, as there. The
+port's copy of cofhe_tpu/node/cli.py.
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ def main(argv=None):
     ap.add_argument("--key", default=os.environ.get("COFHE_KEY"))
     ap.add_argument("--device", default=os.environ.get("COFHE_DEVICE", "cuda"),
                     choices=["cuda", "cpu", "host"])
+    ap.add_argument("--distributed", default=None,
+                    help="this node's ranks: coordinator:port,nproc,pid "
+                         "(torch.distributed; nccl with a card, else gloo)")
     ap.add_argument("--toy", action="store_true", help="tiny parameters for local demos")
     ap.add_argument("--state", default=None,
                     help="setup-node checkpoint file (restore on restart)")
@@ -45,6 +50,11 @@ def main(argv=None):
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+
+    if args.distributed:
+        from ..parallel import distributed as dist
+
+        dist.init(**dist.parse_flag(args.distributed))
 
     from .network_details import CryptoSystemDetails, NodeDetails, NodeType
     from . import nodes as node_factories

@@ -1,5 +1,5 @@
 """TorchEngine: the GPU compute path behind the port's CryptoSystem facade
-(torch port of cofhe_tpu/ops/engine.py, less its mesh paths).
+(torch port of cofhe_tpu/ops/engine.py).
 
 Every batched op comes down to `CG.compose2` on int32 limb tensors:
 
@@ -25,6 +25,20 @@ Tensors live on the engine's device: "cuda" (the default of the facade)
 runs the Hopper kernels, "cpu" runs their plain torch versions. Results
 are bit-exact with the host oracle (unique reduced forms). Ciphertext
 batches stack 2n rows, so they run in chunks of MAX_BATCH / 2.
+
+With a `mesh` (parallel/sharded.py) the engine runs SPMD, as the JAX
+engine does under a global mesh: every rank calls the same method with the
+same inputs and every rank returns the full result.
+
+  * compose_forms_batch, add_batch, scal_batch and the last compose of
+    combine_batch split a bucketed batch into mesh-size row blocks when the
+    mesh size divides it; each rank runs its block and the blocks are
+    gathered;
+  * scal_matmul takes the dp x tp sharded matmul when dp * tp > 1,
+    2n % dp == 0 and m % tp == 0 (its seconds in `last_sharded_phases`);
+  * combine_batch gathers the parties' rows over tp when tp == t > 1;
+  * the wNAF part-decryption stays local to each rank.
+Otherwise every rank runs the one-device path on the whole batch.
 """
 
 from __future__ import annotations
@@ -36,12 +50,13 @@ import torch
 
 from ..core.cl_hsm2k import CipherText, CLHSM2k
 from ..core.qfi import neg as qneg, nudupl as qnudupl, reduce_form
-from ..parallel.sharded import _scan_tree_compose
+from ..parallel.sharded import (_scan_tree_compose, gather_bform,
+                                sharded_matmul, sharded_threshold_combine)
 from ..tensor import Tensor
 from . import limb as lb
 from .forms import BForm, bform_from_forms, bform_neg, bform_to_forms
 from .forms2 import CG, CGCtx
-from .matmul2 import get_plan, make_chain_stack, make_ladder, make_phase2
+from .matmul2 import get_plan, make_chain, make_ladder, make_phase2
 from .nupow2 import (identity_bform2, make_wnaf_bank, nupow_yao2,
                      nwind_for_bits, signed_windows, wnaf_digits,
                      wnaf_segment)
@@ -72,15 +87,20 @@ def resolve_device(device) -> torch.device:
 
 
 class TorchEngine:
-    """Batched engine on one torch device."""
+    """Batched engine on one torch device, optionally one rank of a mesh."""
 
     # below this many forms a host GMP compose per element is cheaper than
     # one batched compose on the device
     min_batch_encrypt = 64
 
-    def __init__(self, hsm2k: CLHSM2k, device="cuda"):
+    def __init__(self, hsm2k: CLHSM2k, device="cuda", mesh=None):
         self.hsm = hsm2k
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            self._coord = mesh.coordinate()
+            if self._coord is None:
+                raise ValueError("this rank lies outside the mesh")
         disc_bits = (-hsm2k.Delta).bit_length()
         L, _ = CGCtx.widths_for_disc_bits(disc_bits)
         self.L = L
@@ -94,18 +114,45 @@ class TorchEngine:
                                  self.device)
         self._identity_form = hsm2k.identity
 
-    def _forms_to_bform(self, forms, batch: int) -> BForm:
+    def _forms_to_bform(self, forms, batch: int, rows=None) -> BForm:
         """Forms padded with identities to `batch` rows (as in the JAX
-        engine: padded lanes take the identity fast path)."""
+        engine: padded lanes take the identity fast path); only the slice
+        `rows` of them when given."""
         padded = list(forms) + [self._identity_form] * (batch - len(forms))
-        return bform_from_forms(padded, self.L, self.device)
+        return bform_from_forms(padded[rows or slice(None)], self.L,
+                                self.device)
 
-    def _cts_to_bform(self, cts) -> tuple[BForm, int, int]:
-        """Stack [c1s..., c2s...] into one identity-padded batch."""
-        n = len(cts)
-        batch = _bucket(2 * n)
+    def _cts_to_bform(self, cts, rows=None) -> BForm:
+        """Stack [c1s..., c2s...] into one identity-padded batch of
+        _bucket(2n) rows (the slice `rows` of it when given)."""
         forms = [ct.c1 for ct in cts] + [ct.c2 for ct in cts]
-        return self._forms_to_bform(forms, batch), n, batch
+        return self._forms_to_bform(forms, _bucket(2 * len(cts)), rows)
+
+    # ------------------------------------------------------------------ mesh
+    def _mesh_dims(self) -> tuple[int, int]:
+        return (1, 1) if self.mesh is None else (self.mesh.dp, self.mesh.tp)
+
+    def _row_block(self, batch: int) -> slice:
+        """This rank's rows of a batch: block d * tp + t of mesh-size
+        blocks when the mesh divides the batch (the JAX engine's
+        _rows_divisible), else all of it."""
+        if self.mesh is None or self.mesh.size == 1 or batch % self.mesh.size:
+            return slice(0, batch)
+        d, t = self._coord
+        blk = batch // self.mesh.size
+        r = d * self.mesh.tp + t
+        return slice(r * blk, (r + 1) * blk)
+
+    def _gather_rows(self, bf: BForm, batch: int) -> BForm:
+        """The whole batch from every rank's row block (a no-op when this
+        rank ran all of it): gathered over tp, then over dp."""
+        if bf.a.shape[0] == batch:
+            return bf
+        for axis in ("tp", "dp"):
+            if self.mesh.shape[axis] > 1:
+                bf = BForm(*(x.reshape((-1,) + x.shape[2:]) for x in
+                             gather_bform(bf, self.mesh.group(axis))))
+        return bf
 
     @staticmethod
     def _bform_to_cts(bf: BForm, n: int):
@@ -135,9 +182,11 @@ class TorchEngine:
         out = []
         for s, e in self._chunks(len(forms1), MAX_BATCH):
             batch = _bucket(e - s)
-            bf = self.cg.compose2(self._forms_to_bform(forms1[s:e], batch),
-                                  self._forms_to_bform(forms2[s:e], batch))
-            out.extend(bform_to_forms(bf)[:e - s])
+            rows = self._row_block(batch)
+            bf = self.cg.compose2(
+                self._forms_to_bform(forms1[s:e], batch, rows),
+                self._forms_to_bform(forms2[s:e], batch, rows))
+            out.extend(bform_to_forms(self._gather_rows(bf, batch))[:e - s])
         return out
 
     @torch.inference_mode()
@@ -145,9 +194,11 @@ class TorchEngine:
         """Elementwise ciphertext addition: (c1 * c1', c2 * c2')."""
         out = []
         for s, e in self._chunks(len(cts1), MAX_BATCH // 2):
-            bf1, n, _ = self._cts_to_bform(cts1[s:e])
-            bf2, _, _ = self._cts_to_bform(cts2[s:e])
-            out.extend(self._bform_to_cts(self.cg.compose2(bf1, bf2), n))
+            batch = _bucket(2 * (e - s))
+            rows = self._row_block(batch)
+            bf = self.cg.compose2(self._cts_to_bform(cts1[s:e], rows),
+                                  self._cts_to_bform(cts2[s:e], rows))
+            out.extend(self._bform_to_cts(self._gather_rows(bf, batch), e - s))
         return out
 
     @torch.inference_mode()
@@ -157,33 +208,48 @@ class TorchEngine:
         nwind = nwind_for_bits(self.hsm.k, YAO_W)
         out = []
         for s, e in self._chunks(len(cts), MAX_BATCH // 2):
-            bf, n, batch = self._cts_to_bform(cts[s:e])
+            n = e - s
+            batch = _bucket(2 * n)
+            rows = self._row_block(batch)
             row_map = np.full(batch, -1, dtype=np.int64)
             row_map[:n] = np.arange(n)
             row_map[n:2 * n] = np.arange(n)
             digits = self._digits_for(list(scalars[s:e]), batch, nwind, row_map)
-            out.extend(self._bform_to_cts(
-                nupow_yao2(self.cg, bf, digits, w=YAO_W), n))
+            bf = nupow_yao2(self.cg, self._cts_to_bform(cts[s:e], rows),
+                            np.ascontiguousarray(digits[:, rows]), w=YAO_W)
+            out.extend(self._bform_to_cts(self._gather_rows(bf, batch), n))
         return out
 
     @torch.inference_mode()
     def combine_batch(self, cts, pdrs_per_party):
         """final_decrypt over a batch: d = d_0 * (d_1 * ... * d_{t-1})^-1
         (lambda = (1, -1, ..., -1), applied on the host), then
-        m = dlog(c2 * d^-1) on the host."""
+        m = dlog(c2 * d^-1) on the host. With a mesh whose tp == t > 1 the
+        rank at tp coordinate i signs and uploads party i's rows only, and
+        the parties meet in an all_gather over tp."""
         t = len(pdrs_per_party)
+        sharded = self._mesh_dims()[1] == t > 1
+
+        def signed(i, s, e):
+            p = pdrs_per_party[i][s:e]
+            return list(p) if i == 0 else [reduce_form(qneg(f)) for f in p]
+
         out = []
         for s, e in self._chunks(len(cts), MAX_BATCH):
             batch = _bucket(e - s)
-            rows = [pdrs_per_party[0][s:e]] + [
-                [reduce_form(qneg(f)) for f in p[s:e]]
-                for p in pdrs_per_party[1:]]
-            stacks = [self._forms_to_bform(r, batch) for r in rows]
-            stacked = BForm(*(torch.stack(xs) for xs in zip(*stacks)))
-            d = _scan_tree_compose(self.cg, stacked, t)
-            c2 = self._forms_to_bform([ct.c2 for ct in cts[s:e]], batch)
-            fm = bform_to_forms(self.cg.compose2(c2, bform_neg(d)))[:e - s]
-            out.extend(self.hsm.dlog_in_F(f) for f in fm)
+            if sharded:
+                d = sharded_threshold_combine(self.cg, self.mesh, self._forms_to_bform(
+                    signed(self._coord[1], s, e), batch))
+            else:
+                stacks = [self._forms_to_bform(signed(i, s, e), batch)
+                          for i in range(t)]
+                d = _scan_tree_compose(
+                    self.cg, BForm(*(torch.stack(xs) for xs in zip(*stacks))), t)
+            rows = self._row_block(batch)
+            c2 = self._forms_to_bform([ct.c2 for ct in cts[s:e]], batch, rows)
+            fm = self.cg.compose2(c2, bform_neg(BForm(*(x[rows] for x in d))))
+            out.extend(self.hsm.dlog_in_F(f) for f in
+                       bform_to_forms(self._gather_rows(fm, batch))[:e - s])
         return out
 
     @torch.inference_mode()
@@ -218,7 +284,8 @@ class TorchEngine:
     def scal_matmul(self, s_tensor: Tensor, ct_tensor: Tensor,
                     zero_ct: CipherText) -> Tensor:
         """ct (n, m) x s (m, p) -> (n, p): res[i,k] = Enc(0) +
-        sum_j s[j,k] * ct[i,j], in row chunks (module docstring)."""
+        sum_j s[j,k] * ct[i,j], in row chunks, or sharded over the mesh
+        (module docstring)."""
         n, m = ct_tensor.shape
         _, p = s_tensor.shape
         nwind = nwind_for_bits(self.hsm.k, YAO_W)
@@ -226,6 +293,10 @@ class TorchEngine:
         for idx in range(m * p):
             recoded[idx] = signed_windows(int(s_tensor.data[idx]), YAO_W,
                                           nwind)
+        dp, tp = self._mesh_dims()
+        if dp * tp > 1 and (2 * n) % dp == 0 and m % tp == 0:
+            return self._scal_matmul_sharded(recoded, ct_tensor, zero_ct,
+                                             n, m, p, nwind)
         chunk = max(1, MATMUL_LANES // (2 * m * p))
         self.last_matmul_phases = dict.fromkeys(
             ("chain_s", "ladder_s", "finalize_s"), 0.0)
@@ -252,10 +323,7 @@ class TorchEngine:
                                     self.device)
         phases = self.last_matmul_phases
         t0 = time.perf_counter()
-        stack = make_chain_stack(self.cg, nwind, YAO_W)(bf_cells)
-        chain = BForm(*(x.reshape((nwind * plan.Bb,) + x.shape[2:])
-                        for x in stack))
-        del stack
+        chain = make_chain(self.cg, plan)(bf_cells)
         t1 = self._synced_clock()
         smallbank = make_ladder(self.cg, plan)(chain, jobs)
         del chain
@@ -269,6 +337,47 @@ class TorchEngine:
         phases["ladder_s"] += t2 - t1
         phases["finalize_s"] += t3 - t2
         return [CipherText(forms[i], forms[nr * p + i]) for i in range(nr * p)]
+
+    def _scal_matmul_sharded(self, recoded, ct_tensor, zero_ct, n: int,
+                             m: int, p: int, nwind: int) -> Tensor:
+        """The whole matmul over the mesh (parallel/sharded.py): rank (d, t)
+        takes stacked rows hi of dp block d (rows2_loc = 2n/dp of them) and
+        contraction columns j of tp block t (m_loc = m/tp), the JAX engine's
+        layout. Host packing, the device run with its gathers, and the
+        rebuild of the ciphertexts are timed in `last_sharded_phases`."""
+        t_start = time.perf_counter()
+        d, t = self._coord
+        rows2_loc, m_loc = 2 * n // self.mesh.dp, m // self.mesh.tp
+        plan = get_plan(rows2_loc, m_loc, p, nwind, YAO_W)
+
+        def stacked(hi, j):  # stacked row hi: c1 of ct row hi, then c2 rows
+            ct = ct_tensor.at(hi % n, j)
+            return ct.c1 if hi < n else ct.c2
+
+        his = range(d * rows2_loc, (d + 1) * rows2_loc)
+        js = range(t * m_loc, (t + 1) * m_loc)
+        cells = bform_from_forms([stacked(hi, j) for hi in his for j in js],
+                                 self.L, self.device)
+        # Enc(0) rows [c1 x n*p, c2 x n*p], block d of rows2_loc * p
+        zrows = range(d * rows2_loc * p, (d + 1) * rows2_loc * p)
+        zero = bform_from_forms([zero_ct.c1 if i < n * p else zero_ct.c2
+                                 for i in zrows], self.L, self.device)
+        # the digits depend only on (j, kk): tp block t's, tiled over rows
+        digits = np.ascontiguousarray(np.tile(
+            recoded.reshape(m, p, nwind)[js.start:js.stop]
+            .reshape(m_loc * p, nwind).T, (1, rows2_loc)))
+        jobs = torch.as_tensor(plan.jobs_b(digits), dtype=torch.long,
+                               device=self.device)
+        t_packed = time.perf_counter()
+        out = sharded_matmul(self.cg, plan, self.mesh, cells, zero, jobs)
+        out = BForm(*(x.cpu() for x in out))
+        t_device = time.perf_counter()
+        forms = bform_to_forms(out)
+        cts = [CipherText(forms[i], forms[n * p + i]) for i in range(n * p)]
+        self.last_sharded_phases = {"pack_s": t_packed - t_start,
+                                    "device_s": t_device - t_packed,
+                                    "rebuild_s": time.perf_counter() - t_device}
+        return Tensor(cts, (n, p))
 
     def _synced_clock(self) -> float:
         """Host clock after the device has finished the queued work."""

@@ -195,6 +195,18 @@ def make_chain_stack(cg: CG, nwind: int, w: int):
     return fn
 
 
+def make_chain(cg: CG, plan: MatmulPlan):
+    """cells -> doubling-chain stack flattened to (nwind * Bb) rows, the
+    ladder's pool layout."""
+    stack_fn = make_chain_stack(cg, plan.nwind, plan.w)
+
+    def fn(bf_cells: BForm) -> BForm:
+        return BForm(*(x.reshape((plan.nwind * plan.Bb,) + x.shape[2:])
+                       for x in stack_fn(bf_cells)))
+
+    return fn
+
+
 def make_ladder(cg: CG, plan: MatmulPlan):
     """chain stack (flattened to nwind*Bb rows) -> contracted bank: the pool
     machine (Yao ladder bank updates + per-slot m-contraction)."""
@@ -224,5 +236,34 @@ def make_phase2(cg: CG, plan: MatmulPlan):
             step(pool, job)
         return _gather(pool, torch.as_tensor(plan.out_rows, dtype=torch.long,
                                              device=cg.device))
+
+    return fn
+
+
+def make_phase1(cg: CG, plan: MatmulPlan):
+    """cells -> contracted bank (chain, then ladder): the phase the sharded
+    matmul runs on every rank before its tp gather.
+    fn(bf_cells, jobs_b) -> BForm of (S-1)*Bo rows, slot-major: slot v's Bo
+    rows hold prod_j bank[(hi, j, kk)][v] at (hi, kk).
+
+    bf_cells: (Bb,) stacked [c1 of cell(hi=0..rows2/2-1, j)..., c2...];
+    jobs_b:   (nsteps, 4, B) from plan.jobs_b(digits)."""
+    chain_fn = make_chain(cg, plan)
+    ladder_fn = make_ladder(cg, plan)
+
+    def fn(bf_cells: BForm, jobs_b: torch.Tensor) -> BForm:
+        return ladder_fn(chain_fn(bf_cells), jobs_b)
+
+    return fn
+
+
+def make_matmul_fn(cg: CG, plan: MatmulPlan):
+    """One-device matmul: phase 1 then phase 2.
+    fn(bf_cells, bf_zero, jobs_b) -> BForm of Bo result rows."""
+    p1 = make_phase1(cg, plan)
+    p2 = make_phase2(cg, plan)
+
+    def fn(bf_cells: BForm, bf_zero: BForm, jobs_b: torch.Tensor) -> BForm:
+        return p2(p1(bf_cells, jobs_b), bf_zero)
 
     return fn

@@ -1,1 +1,2 @@
-"""Measurement scripts that run on a CUDA card beside chip_smoke.py."""
+"""Scripts that run beside chip_smoke.py: kernel measurements on a CUDA card
+(kernel_compare) and the per-rank runner of the multi-card engine (mesh_check)."""

@@ -242,8 +242,10 @@ def test_factory_and_devices(toy_cs, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_cryptosystem(SecurityLevel.MEDIUM, 32, p=toy_cs.hsm2k.p)  # Device.GPU
-    with pytest.raises(NotImplementedError, match="compact"):
-        CryptoSystem(128, 32, compact=True, device="cpu", p=toy_cs.hsm2k.p)
+    # compact mode runs on the host with no engine, whatever the device
+    cs = CryptoSystem(128, 32, compact=True, device="cuda", p=toy_cs.hsm2k.p)
+    assert cs._engine is None and cs.hsm2k.compact_variant()
+    assert cs.serialize() == "CPUCryptoSystem 128 32 1"
 
 
 @pytest.mark.parametrize("mode", ["shared", "per_op"])
