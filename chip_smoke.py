@@ -47,17 +47,28 @@
    the same ciphertexts, bit-identical to the single-card matmul and adds,
    the combine the plaintexts; each rank's K2 launches must show the
    ladder at 8192 lanes and none at 16384, and its gathers must be > 0.
-   Each path (main, engine ops, network, mesh) is driven with the launch
-   counts set to 0 just before it and read just after (on the mesh: each
-   rank's, summed); every kernel must launch in each.
-6. The kernel table: every kernel at every recorded main-path shape and
+6. The legacy path at sec=128, k=128 on 128 of the main path's
+   ciphertexts (c1 and c2 forms), the opt-in and legacy code of the JAX
+   package: NUCOMP compose2 and nudupl2 (CG(..., use_nucomp=True), whose
+   reduction runs K3 at width Ln = 272) must equal the default compose2 /
+   nudupl2 and GMP; nupow_shared_wnaf2 with a 128-bit exponent must equal
+   the engine's bank + segments (part_decrypt_batch) and GMP's nupow; the
+   v1 compose_batch / nudupl_batch (torch ops only, with ops/xgcd.py) must
+   equal compose2 / nudupl2 and GMP, and one xgcd_mod batch math.gcd and
+   the Bezout identity mod m. One NUCOMP compose2 is profiled beside one
+   default compose2 on the same 128 forms: wall and device time (the
+   device's busy share), device time split by kernel, device kernels and
+   copies, exact-tail iterations and Lehmer groups.
+   Each path (main, engine ops, network, mesh, legacy) is driven with the
+   launch counts set to 0 just before it and read just after (on the mesh:
+   each rank's, summed); every kernel must launch in each.
+7. The kernel table: every kernel at every recorded main-path shape and
    batch, checked against its plain versions (K1 also against Python's
    gcd and the Bezout identity), with its trip counts (K1 in groups and
    in divsteps), time and bound (also at the earlier kernels' per-limb
    operation counts: the 13-divstep K1, the 24-bit-digit K2, the
-   2^12-budget K3); the device time of one compose2 at 128 lanes split by
-   kernel.
-7. Prints the card's name and power limit, one JSON line with each
+   2^12-budget K3), and K3 at the legacy path's width 272.
+8. Prints the card's name and power limit, one JSON line with each
    kernel's numbers (launches in all and by path), and as the last line
    {"ok": true, "device": {...}}.
 
@@ -98,6 +109,8 @@ OPENING_B = 2 * NET_DIM ** 3  # ciphertexts of its opening round
 NODE_ENV = {"COFHE_RPC_TIMEOUT": "900", "COFHE_CLIENT_TIMEOUT_S": "900",
             "COFHE_TRIPLET_CACHE": str(NET_DIM ** 3)}
 TABLE_B = (128, 256, 16384)  # decrypt, chain, ladder compose2 batches
+LEGACY_B = 128         # lanes of the legacy path
+LEGACY_EXP_BITS = 128  # its shared wNAF exponent
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, and the int32 rate as half
 # the FP32 lanes of the 67 TFLOP/s float32 figure, one op per lane per clock
 MEM_BYTES_PER_S = 3.35e12
@@ -301,7 +314,7 @@ def check_k3(torch, cgp, cg, f2m, gmp, hsm, bform_from_forms, bform_to_forms, rn
     b1 = bform_from_forms(f1, cg.L, "cuda")
     b2 = bform_from_forms(f2, cg.L, "cuda")
     with torch.inference_mode():
-        a3, b3s, b3m, c3, _, _ = cg.compose2_unreduced(b1, b2)
+        a3, b3s, b3m, c3, *_ = cg.compose2_unreduced(b1, b2)
         bred = b3s[..., None] * b3m
         args = (cg.dD_mant, cg.dD_top, cg.red_iters)
         iters = torch.zeros(B, dtype=torch.int32, device="cuda")
@@ -341,8 +354,9 @@ class Recorder:
 
     WANT = {("decrypt", 128), ("matmul", 256), ("matmul", 16384)}
 
-    def __init__(self, torch, cgp):
+    def __init__(self, torch, cgp, want=None):
         self.torch, self.cgp = torch, cgp
+        self.want = self.WANT if want is None else want
         self.phase = None
         self.counts: dict = {}
         self.ops: dict = {}
@@ -352,7 +366,7 @@ class Recorder:
     def _note(self, key, B, args):
         full = key + (B,)
         self.counts[full] = self.counts.get(full, 0) + 1
-        if (self.phase, B) in self.WANT and full not in self.ops:
+        if (self.phase, B) in self.want and full not in self.ops:
             self.ops[full] = tuple(a.clone() if isinstance(a, self.torch.Tensor)
                                    else a for a in args)
 
@@ -696,6 +710,103 @@ def run_network(torch, cgp, port, rng):
     return launches
 
 
+def run_legacy(torch, cgp, port, main, rng):
+    """The opt-in and legacy code at full width on 128 of the main path's
+    ciphertexts: NUCOMP compose2 / nudupl2, nupow_shared_wnaf2, the v1
+    compose_batch / nudupl_batch and xgcd_mod, each against GMP and the
+    port's default paths. Returns the launches and the recorder (K3's
+    operands at width Ln)."""
+    from cofhe_tpu_torch.ops import forms, xgcd
+    from cofhe_tpu_torch.ops.nupow2 import nupow_shared_wnaf2, wnaf_digits
+    from cofhe_tpu_torch.utils.benchmark import PhaseTimer
+
+    cs = main["cs"]
+    eng, hsm = cs._engine, cs.hsm2k
+    cg = eng.cg
+    gmp = port.hostgmp.GmpClassGroup(hsm.Delta)
+    cts = main["ct"].data[:LEGACY_B]
+    f1, f2 = [ct.c1 for ct in cts], [ct.c2 for ct in cts]
+    b1 = port.bform_from_forms(f1, cg.L, "cuda")
+    b2 = port.bform_from_forms(f2, cg.L, "cuda")
+    ncg = port.f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True)
+    spec = forms.FormSpec.for_disc_bits(cg.disc_bits)
+    if spec.L != cg.L or ncg.Ln <= cg.L:
+        fail(f"legacy widths: v1 L={spec.L}, compose2 L={cg.L}, Ln={ncg.Ln}")
+    e = rng.getrandbits(LEGACY_EXP_BITS) | (1 << (LEGACY_EXP_BITS - 1))
+    sched = wnaf_digits(e, 5)
+    xf = [f.a if f.a & 1 else f.c for f in f2]  # odd, as compose's first xgcd
+    xg = [f.a for f in f1]
+    half = max(x.bit_length() for x in xf) // 2
+    for i in range(8):  # lanes with a gcd above 1: (d*a, d*b), (f, 0), (f, f)
+        d = rng.getrandbits(half // 2) | 1
+        xf[i], xg[i] = d * (rng.getrandbits(half) | 1), d * rng.getrandbits(half)
+    xg[8], xg[9] = 0, xf[9]
+    timer = PhaseTimer("cuda")
+    phases = timer.phases
+    rec = Recorder(torch, cgp, want={("legacy", LEGACY_B)})
+    rec.phase = "legacy"
+    cgp.reset_launches()
+    with rec, torch.inference_mode(), TailCount() as tail:
+        with timer("nucomp_compose2_s"):
+            nc = ncg.compose2(b1, b2)
+            torch.cuda.synchronize()
+        with timer("nucomp_nudupl2_s"):
+            nd = ncg.nudupl2(b1)
+            torch.cuda.synchronize()
+        with timer("shared_wnaf_s"):
+            wn = nupow_shared_wnaf2(cg, b1, sched)
+            torch.cuda.synchronize()
+        with timer("v1_compose_s"):
+            vc = forms.compose_batch(b1, b2, spec, cg.delta4)
+            torch.cuda.synchronize()
+        with timer("v1_nudupl_s"):
+            vd = forms.nudupl_batch(b1, spec, cg.delta4)
+            torch.cuda.synchronize()
+        with timer("xgcd_mod_s"):
+            xl = [torch.as_tensor(port.lb.ints_to_limbs(v, cg.L)).cuda()
+                  for v in (xf, xg)]
+            xo = xgcd.xgcd_mod(xl[0], xl[1], xl[0], spec.n_bits)
+            torch.cuda.synchronize()
+    phases["tail_iters"] = tail.n
+    launches = check_path_launches(cgp, rec, "legacy path")
+    if not any(k[0] == "reduce2_grouped" and k[1] == ncg.Ln for k in rec.counts):
+        fail(f"the NUCOMP reduction did not launch K3 at width {ncg.Ln}")
+
+    with timer("checks_s"), torch.inference_mode():
+        want_c, want_d = gmp.compose_batch(f1, f2), gmp.nudupl_batch(f1)
+        got = {"NUCOMP compose2": (nc, want_c), "NUCOMP nudupl2": (nd, want_d),
+               "v1 compose_batch": (vc, want_c), "v1 nudupl_batch": (vd, want_d),
+               "nupow_shared_wnaf2": (wn, gmp.nupow_batch(f1, [e] * LEGACY_B))}
+        default = {"NUCOMP compose2": cg.compose2(b1, b2), "NUCOMP nudupl2": cg.nudupl2(b1)}
+        default["v1 compose_batch"] = default["NUCOMP compose2"]
+        default["v1 nudupl_batch"] = default["NUCOMP nudupl2"]
+        default["nupow_shared_wnaf2"] = port.bform_from_forms(
+            eng.part_decrypt_batch(e, cts), cg.L, "cuda")
+        for name, (bf, want) in got.items():
+            if port.bform_to_forms(bf) != want:
+                fail(f"legacy path: {name} differs from GMP")
+            if max_abs_diff(torch, bf, default[name]):
+                fail(f"legacy path: {name} differs from the port's default path")
+        d, u, v = (port.lb.limbs_to_ints(x.cpu()) for x in xo)
+        for i, (f, g) in enumerate(zip(xf, xg)):
+            if d[i] != math.gcd(f, g) or not (0 <= u[i] < f and 0 <= v[i] < f) \
+                    or (u[i] * f + v[i] * g - d[i]) % f:
+                fail(f"legacy path: xgcd_mod lane {i} gives a wrong gcd or Bezout pair")
+    log(f"legacy path ({LEGACY_B} lanes at sec={SEC} k={K}): NUCOMP compose2 and "
+        f"nudupl2 (K3 at width {ncg.Ln}), nupow_shared_wnaf2 ({LEGACY_EXP_BITS}-bit "
+        f"exponent, {len(sched)} digits, {sum(x != 0 for x in sched)} nonzero), the v1 "
+        f"compose_batch / nudupl_batch equal to GMP and to the default paths; xgcd_mod "
+        f"({sum(x > 1 for x in d)} lanes with d > 1) equal to math.gcd with its Bezout "
+        f"identity mod m; phase seconds: "
+        + json.dumps({k: (round(x, 3) if isinstance(x, float) else x)
+                      for k, x in phases.items()}))
+    seed = rng.getrandbits(64)  # both profiles compose the same forms
+    for c, label in ((cg, "default tail"), (ncg, "NUCOMP tail")):
+        profile_compose(torch, c, gmp, hsm, port.bform_from_forms,
+                        random.Random(seed), label)
+    return launches, rec
+
+
 # --------------------------------------------------------- the kernel table
 
 
@@ -731,7 +842,7 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
     dev = args[0].device
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
     row = {"name": f"{name}[W={W},{'nbits' if name == 'xgcd_coeff_g' else 'Lm'}="
-                   f"{extra}]@B={B}" if name != "reduce2_grouped" else f"{name}@B={B}",
+                   f"{extra}]@B={B}" if name != "reduce2_grouped" else f"{name}[W={W}]@B={B}",
            "launches": n_launch, "library_ms": None}
     old_ops = None
     if name == "xgcd_coeff_g":
@@ -814,11 +925,37 @@ def decrypt_k1_lanes(lb, rec):
     return out
 
 
+class LehmerCount:
+    """Records each lane's working groups of the NUCOMP tail's
+    rl.lehmer_euclid inside a with block (groups: one (B,) tensor a call)."""
+
+    def __enter__(self):
+        from cofhe_tpu_torch.ops import rl
+
+        self.rl, self.orig, self.groups = rl, rl.lehmer_euclid, []
+
+        def counted(*args, **kw):
+            import torch
+
+            it = torch.zeros(args[0].shape[0], dtype=torch.int32, device=args[0].device)
+            out = self.orig(*args, iters=it, **kw)
+            self.groups.append(it)
+            return out
+
+        rl.lehmer_euclid = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.rl.lehmer_euclid = self.orig
+        return False
+
+
 def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128):
     """Host wall time and device time of one compose2 at the decrypt
     ladder's batch (the device's busy share of a host-driven step), the
     device time split into the three kernels and everything else, and the
-    iterations of the exact tail (forms.reduce_batch) after the rho loop."""
+    iterations of the exact tail (forms.reduce_batch) after the rho loop
+    (with the NUCOMP tail, also the Lehmer walk's groups a lane)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -835,7 +972,7 @@ def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             cg.compose2(b1, b2)
             torch.cuda.synchronize()
-        with TailCount() as tail:
+        with TailCount() as tail, LehmerCount() as lehmer:
             cg.compose2(b1, b2)
     # device-side events only: a CPU op's device time repeats its kernels'
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -845,9 +982,12 @@ def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128):
         split[k] += e.self_device_time_total / 1e3
     dev_ms = sum(split.values())
     busy = f"{dev_ms / wall_ms:.1%} of the wall time" if dev_ms else "not measured"
+    groups = (f", Lehmer groups a lane {_stats(lehmer.groups[0])}"
+              if lehmer.groups else "")
     log(f"compose2 B={B} ({label}): wall {wall_ms:.1f} ms, device {dev_ms:.2f} ms "
         f"({busy}), {len(device)} device kernels and copies, {tail.n} exact-tail "
-        f"iterations; device ms by kernel " + json.dumps({k: round(v, 3) for k, v in split.items()}))
+        f"iterations{groups}; device ms by kernel "
+        + json.dumps({k: round(v, 3) for k, v in split.items()}))
 
 
 def card_line() -> str:
@@ -976,6 +1116,9 @@ def main() -> int:
     t = time.perf_counter()
     by_path["mesh"] = run_mesh(torch, cgp, port, main_path, ops)
     log(f"mesh phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    by_path["legacy"], legacy_rec = run_legacy(torch, cgp, port, main_path, rng)
+    log(f"legacy phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     table = []
@@ -983,12 +1126,15 @@ def main() -> int:
         for key in sorted(rec.ops, key=lambda k: (k[3], k[0], k[1])):
             table.append(table_row(torch, cgp, f2m, cg, lb, key, rec.ops[key],
                                    rec.counts[key]))
+        # the legacy path's shapes that the main path has not (K3 at Ln)
+        for key in sorted(k for k in legacy_rec.ops if k not in rec.ops):
+            table.append(table_row(torch, cgp, f2m, cg, lb, key, legacy_rec.ops[key],
+                                   legacy_rec.counts[key]))
     log(f"kernel table: {time.perf_counter() - t:.1f} s, {len(table)} rows")
     for want in TABLE_B:
         if not any(r["name"].endswith(f"@B={want}") for r in table):
             fail(f"no main-path operands were recorded at batch {want}")
 
-    profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, "this tree's kernels")
 
     def entry(name, route_src, replaces, r):
         return {"name": name, "route": "cuda", "source": route_src,

@@ -1,14 +1,21 @@
-"""Batched binary-quadratic-form helpers and the exact reduction tail
-(torch port of the subset of cofhe_tpu/ops/forms.py that the v2 compose
-path uses).
+"""Batched binary-quadratic-form helpers, the exact reduction tail and the
+v1 composition (torch port of cofhe_tpu/ops/forms.py).
 
 A batch of forms is a `BForm` of int32 limb tensors: a, b, c magnitudes of
 shape (..., L) and the sign of b of shape (...,). Reduced forms are unique,
 so every function here is checked by its canonical outputs only.
+
+The v1 composition (`compose_batch`, `nudupl_batch`) is the JAX package's
+first group law, which its v2 (ops/forms2.py) replaced on every path; it
+is kept, as there, as an independent implementation: batched Gauss
+composition with two divstep xgcds whose Bezout residues are taken mod a2
+(ops/xgcd.py), mu by schoolbook long division, c3 by exact Hensel division,
+then `reduce_batch` from the unreduced form. It runs in torch ops only.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
@@ -16,6 +23,7 @@ import torch
 
 from ..core.qfi import Form
 from . import limb as lb
+from .xgcd import xgcd_mod
 
 I32 = torch.int32
 F32 = torch.float32
@@ -26,6 +34,23 @@ class BForm(NamedTuple):
     b_sign: torch.Tensor  # (...,) in {-1, 0, 1}
     b: torch.Tensor       # (..., L) magnitude
     c: torch.Tensor       # (..., L) magnitude, c > 0
+
+
+@dataclass(frozen=True)
+class FormSpec:
+    """Static sizing of the v1 composition for one discriminant."""
+
+    disc_bits: int   # bits of |Delta|
+    L: int           # limbs of a, b, c buffers
+    n_bits: int      # xgcd bit bound
+
+    @staticmethod
+    def for_disc_bits(disc_bits: int) -> "FormSpec":
+        L = (disc_bits + 16 * 6) // 16 + 1
+        L = ((L + 7) // 8) * 8
+        # the xgcd bound covers rotated operands (c ~ |Delta|/4a can reach
+        # disc_bits); its early exit keeps the common ~disc/2-bit case cheap
+        return FormSpec(disc_bits=disc_bits, L=L, n_bits=disc_bits + 32)
 
 
 # ---------------------------------------------------------------------------
@@ -155,3 +180,125 @@ def reduce_batch(bf: BForm, max_iters: int) -> BForm:
         stepped = _normalize_step(bform_select(need_rho, rho, bf))
         bf = bform_select(reduced, bf, stepped)
     return bf
+
+
+# ---------------------------------------------------------------------------
+# v1 composition
+# ---------------------------------------------------------------------------
+
+
+def _sm_half(sign, mag):
+    """(sign, mag) / 2 for even values."""
+    return sign, lb.mag_shr_bits(mag, 1)
+
+
+def _mulmod(x_mag, y_mag, m_mag, L: int, Lq: int):
+    """x*y mod m for magnitudes (x, y < m)."""
+    prod = lb.mag_mul(x_mag, y_mag)  # 2L
+    _, r = lb.mag_divmod(prod, lb.resize(m_mag, prod.shape[-1]), Lq)
+    return lb.resize(r, L)
+
+
+def _c_from_ab(a3, b3s, b3m, delta4_mag, L: int):
+    """c3 = ((b3/2)^2 + |Delta|/4) / a3: a3 = 2^e * odd, shift, then Hensel."""
+    L2 = 2 * L
+    _, b3hm = _sm_half(b3s, b3m)
+    sq = lb.mag_mul(b3hm, b3hm, L2)
+    _, csum = lb.canonicalize_fast(lb.resize(sq, L2) + lb.resize(delta4_mag, L2))
+    e = lb.mag_v2(a3)
+    a3_odd = lb.mag_shr_bits_dyn(a3, e)
+    csum_shifted = lb.mag_shr_bits_dyn(csum, e.clamp(max=16 * L2 - 1))
+    return lb.mag_divexact_odd(csum_shifted, lb.resize(a3_odd, L2), L)
+
+
+def compose_batch(F1: BForm, F2: BForm, spec: FormSpec, delta4_mag: torch.Tensor,
+                  nbits: int | None = None, reduce_iters: int | None = None) -> BForm:
+    """Gauss composition + reduction. F1, F2 reduced forms of the same
+    discriminant (F1 may be a skewed form like f^m with tiny even a and
+    huge c: sizes stay bounded because only a2 is rotated odd).
+
+    * order the operands so a1 <= a2 and rotate F2 to odd a2, which keeps
+      a1 * c2 <= |Delta|/4 inside the L / 2L buffers;
+    * s = (b1 + b2) / 2; d1 = gcd(a2, a1) with beta the a1-coefficient mod
+      a2; g = gcd(d1, |s|) with xi, eta the coefficients of (d1, |s|),
+      skipped as (1, 1, 0) when every lane has d1 == 1 (one host test);
+    * u ≡ xi * beta, w ≡ sign(s) * eta (mod a2) form one Bezout triple
+      u*a1 + v*a2 + w*s = g;
+    * mu = [u*(b2 - b1) - 2*w*c1] mod 2*m2 (m2 = a2/g): the modulus is 2*m2,
+      since b3 is only determined mod 2*a3;
+    * a3 = (a1/g) * m2, b3 = b1 + (a1/g) * mu, c3 = ((b3/2)^2 + |Delta|/4)
+      / a3, then `reduce_batch` (reduce_iters, default disc_bits + 256)."""
+    L = spec.L
+    L2 = 2 * L
+    nbits = nbits if nbits is not None else spec.n_bits
+    reduce_iters = reduce_iters if reduce_iters is not None else spec.disc_bits + 256
+
+    swap = lb.mag_cmp(F1.a, F2.a) > 0
+    F1n = bform_select(swap, F2, F1)
+    F2n = rotate_to_odd(bform_select(swap, F1, F2))
+    a1, b1s, b1m, c1 = F1n
+    a2, b2s, b2m, c2 = F2n
+
+    # s = (b1 + b2) / 2  (b's are even: 4 | Delta)
+    ss, smag = lb.sm_add((b1s, b1m), (b2s, b2m))
+    smag = lb.mag_shr_bits(smag, 1)
+
+    d1, _alpha, beta = xgcd_mod(a2, a1, a2, nbits)
+    # random reduced forms are coprime with overwhelming probability: when
+    # EVERY lane has d1 == 1 the second xgcd is skipped
+    d1_is_one = (d1[..., 0] == 1) & (d1.abs().sum(-1) == 1)
+    if bool(d1_is_one.all()):
+        g = lb.one_limbs(d1.shape[:-1], d1.shape[-1], d1.device)
+        xi, eta = g, torch.zeros_like(d1)
+    else:
+        g, xi, eta = xgcd_mod(d1, smag, a2, nbits)
+
+    # m2 = a2/g, a1g = a1/g (g odd: it divides the odd a2 through d1)
+    m2 = lb.mag_divexact_odd(a2, g, L)
+    a1g = lb.mag_divexact_odd(a1, g, L)
+    u = _mulmod(xi, beta, a2, L, L + 2)
+
+    # mu_num = u*(b2 - b1) - 2*w*c1  (signed, <= ~3n bits)
+    ds, dm = lb.sm_sub((b2s, b2m), (b1s, b1m))
+    t1s, t1m = lb.sm_mul((torch.ones_like(ds), u), (ds, dm), L_out=L2)
+    wcs, wcm = lb.sm_mul((ss, eta), (torch.ones_like(ss), c1), L_out=L2)
+    wcm = lb.mag_shl_bits(wcm, 1, L2)
+    nums, numm = lb.sm_sub((t1s, t1m), (wcs, wcm))
+
+    # mu = mu_num mod 2*m2 in [0, 2*m2); a negative numerator maps mu to
+    # 2*m2 - mu (if nonzero)
+    m2x2 = lb.mag_shl_bits(m2, 1, L)
+    _, mu = lb.mag_divmod(numm, lb.resize(m2x2, numm.shape[-1]), L2)
+    mu = lb.resize(mu, L)
+    neg = (nums < 0) & ~lb.mag_is_zero(mu)
+    _, mu = lb.canonicalize_fast(torch.where(neg[..., None], m2x2 - mu, mu))
+
+    a3 = lb.mag_mul(a1g, m2, L)
+    b3s, b3m = lb.sm_add((b1s, b1m), (torch.ones_like(b1s), lb.mag_mul(a1g, mu, L)))
+    c3 = _c_from_ab(a3, b3s, b3m, delta4_mag, L)
+    return reduce_batch(BForm(a3, b3s, b3m, c3), reduce_iters)
+
+
+def nudupl_batch(F: BForm, spec: FormSpec, delta4_mag: torch.Tensor,
+                 nbits: int | None = None, reduce_iters: int | None = None) -> BForm:
+    """Squaring: one xgcd instead of two. b3 = b - 2*(a/g)*(y*c mod m2),
+    a3 = (a/g)^2, with g = gcd(a, b) and y the b-coefficient mod a."""
+    L = spec.L
+    nbits = nbits if nbits is not None else spec.n_bits
+    reduce_iters = reduce_iters if reduce_iters is not None else spec.disc_bits + 256
+
+    a, bs, bm, c = rotate_to_odd(F)
+    g, _xa, y = xgcd_mod(a, bm, a, nbits)  # y*|b| ≡ g - xa*a ≡ g (mod a)
+    m2 = lb.mag_divexact_odd(a, g, L)      # a/g (odd)
+    # mu = (sign(b) * y * c) mod m2
+    prod = lb.mag_mul(y, c)  # 2L
+    _, mu = lb.mag_divmod(prod, lb.resize(m2, prod.shape[-1]), L + 2)
+    mu = lb.resize(mu, L)
+    neg = (bs < 0) & ~lb.mag_is_zero(mu)
+    _, mu = lb.canonicalize_fast(torch.where(neg[..., None], m2 - mu, mu))
+
+    a3 = lb.mag_mul(m2, m2, L)
+    t = lb.mag_mul(m2, mu, L)
+    b3s, b3m = lb.sm_sub((bs, bm), (torch.ones_like(bs), lb.mag_shl_bits(t, 1, L)))
+    c3 = _c_from_ab(a3, b3s, b3m, delta4_mag, L)
+    return reduce_batch(BForm(a3, b3s, b3m, c3), reduce_iters)

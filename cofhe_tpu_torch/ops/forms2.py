@@ -14,7 +14,11 @@ The algebra and the widths are the JAX package's:
   xi = (g - eta0*|s|) / d1;
 * mu = [u*(b2-b1) - 2*w*c1] mod 2*m2 with one top-down reduction;
 * reduction: estimate-driven rho-descent (grouped or per-quotient) and the
-  exact tail `forms.reduce_batch`.
+  exact tail `forms.reduce_batch`; or, opt-in as in the JAX package
+  (`COFHE_NUCOMP=1` or `CG(..., use_nucomp=True)`), the NUCOMP tail: a
+  Lehmer walk down the continued fraction of mu / 2m2 (`rl.lehmer_euclid`)
+  and the nearly reduced form built from its cofactors, which the
+  rho-descent then finishes at width Ln.
 
 Every `xgcd_coeff_g`, `mod_topdown` and grouped-rho loop goes through the
 dispatchers of ops/cuda_group.py: on a CUDA tensor they launch the Hopper
@@ -29,6 +33,8 @@ and the JAX iteration caps are kept.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from . import cuda_group
@@ -40,8 +46,7 @@ from .forms import BForm, bform_broadcast, bform_from_numpy, bform_select, \
 I32 = torch.int32
 F32 = torch.float32
 
-# host syncs of the torch-op loops: one exit test every SYNC_EVERY iterations
-SYNC_EVERY = 4
+SYNC_EVERY = rl.SYNC_EVERY
 
 
 def _renorm_est(m, t):
@@ -306,10 +311,14 @@ def _r8(limbs: int) -> int:
 class CG:
     """Per-discriminant kernel family on one torch device: the widths, the
     constant |Delta|/4 and the two substitute forms h, h^2 of the identity
-    fast path."""
+    fast path. `use_nucomp` selects the NUCOMP tail; None reads the JAX
+    package's switch COFHE_NUCOMP (=1 on) at construction."""
 
     def __init__(self, disc_bits: int, delta4: torch.Tensor, h: BForm,
-                 h2: BForm):
+                 h2: BForm, use_nucomp: bool | None = None):
+        if use_nucomp is None:
+            use_nucomp = os.environ.get("COFHE_NUCOMP", "0") == "1"
+        self.use_nucomp = use_nucomp
         self.device = delta4.device
         self.disc_bits = disc_bits
         L, Lh = CGCtx.widths_for_disc_bits(disc_bits)
@@ -331,18 +340,22 @@ class CG:
         self.Lu = _r8((3 * disc_bits // 2 + 48 + 15) // 16)
         self.Lm = max(_r8((2 * disc_bits + 34 + 15) // 16), L + 8)
         self.Lsq = min(_r8((disc_bits + 19 + 15) // 16), L)
+        # NUCOMP numerators a3 x^2, b3 x y, c3 y^2: ~2D + bits(y)^2 with the
+        # lehmer_euclid y-cap, Lm and a margin; the Lehmer walk's group cap
+        self.Ln = self.Lm + 8
+        self.eu_groups = disc_bits // 16 + 48
         # narrow width of the first gcd (rotated-in c2 exceeds it only with
         # probability ~2^-400 for random class-group elements)
         self.Lxn = min(_r8(Lh + 16), L)
 
     @classmethod
     def from_arrays(cls, disc_bits: int, delta4, h_rows, h2_rows,
-                    device) -> "CG":
+                    device, use_nucomp: bool | None = None) -> "CG":
         """CG from the numpy arrays a JAX `CG` holds: `delta4` (2L,) and
         the rows (a, b_sign, b, c) of h and h^2."""
         d4 = torch.as_tensor(delta4).to(device=device, dtype=I32)
         return cls(disc_bits, d4, bform_from_numpy(*h_rows, device),
-                   bform_from_numpy(*h2_rows, device))
+                   bform_from_numpy(*h2_rows, device), use_nucomp=use_nucomp)
 
     # ------------------------------------------------------------ helpers
     @staticmethod
@@ -413,8 +426,12 @@ class CG:
 
     # ------------------------------------------------------------ compose
     def compose2(self, F1: BForm, F2: BForm, grouped: bool = True) -> BForm:
-        a3, b3s, b3m, c3, id1, id2 = self.compose2_unreduced(F1, F2)
-        out = self.reduce2(a3, b3s[..., None] * b3m, c3, grouped=grouped)
+        (a3, b3s, b3m, c3, a1g, m2x2, mu,
+         id1, id2) = self.compose2_unreduced(F1, F2)
+        if self.use_nucomp:
+            out = self._nucomp_tail(a3, b3s, b3m, c3, a1g, m2x2, mu, grouped)
+        else:
+            out = self.reduce2(a3, b3s[..., None] * b3m, c3, grouped=grouped)
         # identity selects (both identities: F2 is the identity, so the
         # first select already returns it)
         out = bform_select(id2 & ~id1, F1, out)
@@ -433,7 +450,9 @@ class CG:
 
     def compose2_unreduced(self, F1: BForm, F2: BForm):
         """Everything before the reduction: the unreduced composed
-        (a3, b3s, b3m, c3) and the identity masks (id1, id2)."""
+        coefficients (a3, b3s, b3m, c3), the NUCOMP tail's operands
+        (a1g, m2x2, mu) and the identity masks (id1, id2), in the JAX
+        function's order."""
         L, Lh = self.L, self.Lh
         B = F1.a.shape[0]
 
@@ -543,4 +562,64 @@ class CG:
         a3_odd = lb.mag_shr_bits_dyn(a3, e)
         csum_sh = lb.mag_shr_bits_dyn(csum, e.clamp(max=16 * Lm - 1))
         c3 = lb.mag_divexact_odd(csum_sh, lb.resize(a3_odd, Lm), L)
-        return a3, b3s, b3m, c3, id1, id2
+        return a3, b3s, b3m, c3, a1g, m2x2, mu, id1, id2
+
+    def _nucomp_tail(self, a3, b3s, b3m, c3, a1g, m2x2, mu,
+                     grouped: bool = True) -> BForm:
+        """NUCOMP partial reduction: walk the continued fraction of
+        mu / 2m2 with rl.lehmer_euclid down to bits_stop (~ the bits of
+        (|Delta|/4)^(1/4) * sqrt(2m2 / a1g)) and build the nearly reduced
+        equivalent form from the cofactors z_i = (x_i, y_i):
+
+            Q(z)  = a3 x^2 + b3 x y + c3 y^2       (the new a and c)
+            cross = 2 a3 xp xc + b3 (xp yc + xc yp) + 2 c3 yp yc  (the new b)
+
+        det [[xp, yp], [xc, yc]] = +-1; an improper transform conjugates the
+        class, which negating b undoes. reduce2 then finishes at width Ln."""
+        L, Ln = self.L, self.Ln
+        mantB, topB = rl.value_est_ordered(m2x2)
+        bitsB = rl.bits_est(mantB, topB)
+        mantA, topA = rl.value_est_ordered(a1g)
+        bitsA = rl.bits_est(mantA, topA)
+        # T^2 ~ 2B * sqrt(|D|/4) / sqrt(A*B)
+        bits_stop = 0.5 * (bitsB + 0.5 * (self.disc_bits - 2.0)
+                           - 0.5 * (bitsA + bitsB - 1.0))
+        _, _, xp, xc, yp, yc, par = rl.lehmer_euclid(
+            lb.resize(m2x2, L), lb.resize(mu, L), bits_stop, self.eu_groups)
+        # the cofactors stay under the walk's y-cap (<= 16 Lh bits), so
+        # they are cut to Lh limbs before the products
+        Lxy = min(self.Lh, L)
+        sxp, mxp = lb.canonicalize_fast(xp)
+        sxc, mxc = lb.canonicalize_fast(xc)
+        syp, myp = lb.canonicalize_fast(yp)
+        syc, myc = lb.canonicalize_fast(yc)
+        mxp, mxc = lb.resize(mxp, Lxy), lb.resize(mxc, Lxy)
+        myp, myc = lb.resize(myp, Lxy), lb.resize(myc, Lxy)
+
+        def term(sa, ma, sb, mb, coeff_mag):
+            return sa * sb, lb.mag_mul(lb.mag_mul(ma, mb), coeff_mag, Ln)
+
+        def quad(sx, mx, sy, my):
+            """a3 x^2 + b3 x y + c3 y^2, canonical (it is a form value > 0)."""
+            t1s, t1m = term(sx, mx, sx, mx, a3)
+            t2s, t2m = term(sx, mx, sy, my, b3m)
+            t3s, t3m = term(sy, my, sy, my, c3)
+            return lb.canonicalize_fast(t1s[..., None] * t1m
+                                        + (t2s * b3s)[..., None] * t2m
+                                        + t3s[..., None] * t3m)[1]
+
+        nA = quad(sxp, mxp, syp, myp)
+        nC = quad(sxc, mxc, syc, myc)
+        v1s, v1m = term(sxp, mxp, sxc, mxc, a3)
+        v3s, v3m = term(syp, myp, syc, myc, c3)
+        cs, cm = lb.canonicalize_fast(
+            (sxp * syc)[..., None] * lb.mag_mul(mxp, myc)
+            + (sxc * syp)[..., None] * lb.mag_mul(mxc, myp))
+        nB = (2 * v1s[..., None] * v1m
+              + (cs * b3s)[..., None] * lb.mag_mul(cm, b3m, Ln)
+              + 2 * v3s[..., None] * v3m)
+        nB = (1 - 2 * (par & 1))[..., None] * nB
+        red = self.reduce2(nA, nB, nC, grouped=grouped)
+        # reduced coefficients fit L (c <= |Delta|/4); back to form width
+        return BForm(lb.resize(red.a, L), red.b_sign, lb.resize(red.b, L),
+                     lb.resize(red.c, L))

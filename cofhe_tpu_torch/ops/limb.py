@@ -1,7 +1,6 @@
 """Batched fixed-width big-integer arithmetic on int32 limb tensors (torch).
 
-Port of cofhe_tpu/ops/limb.py (the subset the v2 compose kernel needs).
-Representation is unchanged:
+Port of cofhe_tpu/ops/limb.py. Representation is unchanged:
 
 * a magnitude is `(..., L)` int32, little-endian base-2^16 limbs in
   [0, 2^16); a signed number is `(sign, mag)` with `sign` int32 in
@@ -178,6 +177,33 @@ def canonicalize_fast(limbs):
     return sign, mag
 
 
+def _carry_scan(limbs):
+    """Propagate carries LSB->MSB over redundant limbs, one limb column at a
+    time as the JAX scan does. Returns (mag with limbs in [0, BASE), final
+    carry of shape (...,))."""
+    c = torch.zeros(limbs.shape[:-1], dtype=limbs.dtype, device=limbs.device)
+    rows = []
+    for i in range(limbs.shape[-1]):
+        t = limbs[..., i] + c
+        rows.append(t & MASK)
+        c = t >> BASE_BITS  # arithmetic shift = floor division
+    return torch.stack(rows, -1), c
+
+
+def canonicalize(limbs):
+    """Redundant signed limbs -> (sign, mag) by the sequential carry scan.
+    Requires |value| < 2^(16 L); same outputs as canonicalize_fast."""
+    mag, c = _carry_scan(limbs)
+    is_neg = c < 0
+    mag = torch.where(is_neg[..., None], _negate_mag_fast(mag), mag)
+    sign = torch.where(is_neg, -1, 1).to(I32) * (~mag_is_zero(mag)).to(I32)
+    return sign, mag
+
+
+def mag_is_zero(mag):
+    return (mag == 0).all(-1)
+
+
 def _negate_mag_fast(mag):
     """2^(16L) - mag (mod 2^(16L)): limbs below the lowest nonzero limb stay
     0, that limb becomes 2^16 - limb, every limb above it 2^16 - 1 - limb."""
@@ -219,6 +245,12 @@ def resize(mag, L: int):
 # ---------------------------------------------------------------------------
 
 
+def sm_redundant(a):
+    """Signed (sign, mag) -> redundant limbs with the sign folded in."""
+    sign, mag = a
+    return sign[..., None] * mag
+
+
 def sm_add(a, b):
     sa, ma = a
     sb, mb = b
@@ -230,6 +262,16 @@ def sm_add(a, b):
 def sm_sub(a, b):
     sb, mb = b
     return sm_add(a, (-sb, mb))
+
+
+def sm_neg(a):
+    s, m = a
+    return -s, m
+
+
+def sm_cmp(a, b):
+    """sign(a - b) as (...,) int32."""
+    return sm_sub(a, b)[0]
 
 
 def mag_cmp(ma, mb):
@@ -296,6 +338,25 @@ def mag_mul(ma, mb, L_out: int | None = None):
     return canonicalize_nonneg(resize(_from8(c8), L_out))
 
 
+def mag_sqr(ma, L_out: int | None = None):
+    return mag_mul(ma, ma, L_out)
+
+
+def sm_mul(a, b, L_out: int | None = None):
+    sa, ma = a
+    sb, mb = b
+    return sa * sb, mag_mul(ma, mb, L_out)
+
+
+def sm_scalar_mul(a, scalar, L_out: int | None = None):
+    """Signed value times per-element int32 scalar with |scalar| < 2^15."""
+    s, m = a
+    if L_out is not None:
+        m = resize(m, L_out)
+    sgn, mag = canonicalize_fast(m * scalar.abs()[..., None])  # < 2^31
+    return sgn * s * torch.sign(scalar), mag
+
+
 # ---------------------------------------------------------------------------
 # shifts
 # ---------------------------------------------------------------------------
@@ -306,6 +367,10 @@ def mag_shl_limbs(mag, n: int, L_out: int | None = None):
     if L_out is None:
         L_out = L + n
     return F.pad(mag, (n, max(0, L_out - L - n)))[..., :L_out]
+
+
+def mag_shr_limbs(mag, n: int):
+    return mag[..., n:]
 
 
 def mag_shl_bits(mag, bits: int, L_out: int | None = None):
@@ -319,7 +384,7 @@ def mag_shl_bits(mag, bits: int, L_out: int | None = None):
 
 def mag_shr_bits(mag, bits: int):
     limbs, rem = divmod(bits, BASE_BITS)
-    x = mag[..., limbs:] if limbs else mag
+    x = mag_shr_limbs(mag, limbs) if limbs else mag
     if rem == 0:
         return x
     up = _shift_down(x, 1)
@@ -407,6 +472,14 @@ def mag_float(mag):
     return mant, exp
 
 
+def _div_digit_estimate(x_mant, x_exp, y_mant, y_exp, shift_bits: int):
+    """Estimate floor(X / (Y * 2^shift_bits)), clamped to [0, 2^16 - 1]."""
+    ratio = x_mant / y_mant.clamp(min=1.0)
+    e = (x_exp - y_exp - shift_bits).to(torch.float32)
+    q = ratio * torch.exp2(e.clamp(-30.0, 17.0))
+    return q.clamp(0.0, float(MASK)).to(I32)
+
+
 # ---------------------------------------------------------------------------
 # division
 # ---------------------------------------------------------------------------
@@ -463,3 +536,55 @@ def mag_divexact_odd(x, y, L_out: int, inv=None):
     if inv is None:
         inv = inv_pow2(y, L_out)
     return mag_mul(resize(x, L_out), resize(inv, L_out), L_out)
+
+
+def _shl8(mag, L: int):
+    """Canonical magnitude of (mag << 8), length L."""
+    return canonicalize_fast(resize(mag, L) << 8)[1]
+
+
+def mag_divmod(x, y, Lq: int):
+    """Schoolbook long division of magnitudes: (q, r) with x = q*y + r,
+    0 <= r < y. Lq must satisfy 16*Lq >= bitlen(x) - bitlen(y) + 1 for every
+    batch element; y must be nonzero.
+
+    The JAX digit step, one 16-bit digit from the top down: an f32 estimate
+    (mag_float, _div_digit_estimate) applied as 8-bit halves against y and
+    y << 8, then 3 fix-down and 2 fix-up passes against y << 16j. A
+    shifted divisor that overflows the buffer means the digit is 0, and no
+    fix may run (`ok`). The digit index is a Python int here, so the limb
+    shifts are static."""
+    Lx = x.shape[-1]
+    yv = resize(y, Lx)
+    y8 = _shl8(yv, Lx)
+    y_mant, y_exp = mag_float(yv)
+    y_bits = mag_bitlen(yv)
+    sgn = torch.ones(x.shape[:-1], dtype=I32, device=x.device)
+    rem = x
+    digits = [None] * Lq
+    for j in range(Lq - 1, -1, -1):  # invariant: sgn >= 0, rem < y * 2^(16(j+1))
+        yshift = mag_shl_limbs(yv, j, Lx)
+        ok = (y_bits + j * BASE_BITS) <= Lx * BASE_BITS
+        x_mant, x_exp = mag_float(rem)
+        qd = _div_digit_estimate(x_mant, x_exp, y_mant, y_exp, j * BASE_BITS)
+        qd = torch.where(ok, qd, 0)
+        sub = (qd & 0xFF)[..., None] * yv + (qd >> 8)[..., None] * y8  # < 2^25
+        s2, m2 = canonicalize_fast(sgn[..., None] * rem
+                                   - mag_shl_limbs(sub, j, Lx))
+        for _ in range(3):  # fix down: while negative, qd -= 1, rem += y<<16j
+            neg = (s2 < 0) & ok
+            s2, m2 = canonicalize_fast(s2[..., None] * m2
+                                       + torch.where(neg[..., None], yshift, 0))
+            qd = qd - neg.to(I32)
+        for _ in range(2):  # fix up: while rem >= y<<16j, qd += 1, rem -= y<<16j
+            ge = (s2 > 0) & ok & (mag_cmp(m2, yshift) >= 0)
+            s2, m2 = canonicalize_fast(s2[..., None] * m2
+                                       - torch.where(ge[..., None], yshift, 0))
+            qd = qd + ge.to(I32)
+        sgn, rem = s2, m2
+        digits[j] = qd
+    return torch.stack(digits, -1), rem
+
+
+def mag_mod(x, y, Lq: int):
+    return mag_divmod(x, y, Lq)[1]

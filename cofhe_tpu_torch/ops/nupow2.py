@@ -1,5 +1,5 @@
 """Batched exponentiation helpers on the v2 compose (torch port of
-cofhe_tpu/ops/nupow2.py, less the unused nupow_shared_wnaf2).
+cofhe_tpu/ops/nupow2.py).
 
 * signed radix-2^w recoding of per-element exponents (host side; the
   matmul's Yao ladder reads these digits as job data);
@@ -7,8 +7,10 @@ cofhe_tpu/ops/nupow2.py, less the unused nupow_shared_wnaf2).
   bank of 2^(w-1)+1 slots updated by a masked select, one compose2 and w
   nudupl2 a window, then the suffix-product finalization;
 * the shared-exponent wNAF ladder of part_decrypt / decrypt: an odd-power
-  bank, then one nudupl per digit and one compose per nonzero digit. The
-  digit schedule is host data, so the per-digit branch is a Python `if`.
+  bank, then one nudupl per digit and one compose per nonzero digit
+  (`make_wnaf_bank` + `wnaf_segment`, or both in one call,
+  `nupow_shared_wnaf2`). The digit schedule is host data, so the
+  per-digit branch is a Python `if`.
 
 Every step ends on reduced forms, so results equal core.qfi.nupow.
 """
@@ -140,3 +142,16 @@ def wnaf_segment(cg: CG, bank: BForm, r: BForm, sched) -> BForm:
             t = BForm(bank.a[idx], bank.b_sign[idx], bank.b[idx], bank.c[idx])
             r = cg.compose2(r, bform_neg(t) if d < 0 else t)
     return r
+
+
+def nupow_shared_wnaf2(cg: CG, base: BForm, sched, w: int = 5) -> BForm:
+    """base^e for a shared exponent known on the host: the odd-power bank
+    of `make_wnaf_bank`, then `wnaf_segment` from the identity over the
+    whole wNAF digit stream `sched` (wnaf_digits' MSB-first digits; a
+    zero-padded front, as the JAX function's length buckets have, only
+    squares the identity). The reductions take the grouped rho loop (K3 on
+    the card): the JAX function's grouped=False pin works around a TPU
+    scheduling fault, and reduced forms are unique."""
+    sched = [int(d) for d in np.asarray(sched).reshape(-1)]
+    bank = make_wnaf_bank(cg, base, w)
+    return wnaf_segment(cg, bank, identity_bform2(cg, base.a.shape[0]), sched)

@@ -7,6 +7,9 @@ tails canonicalize. `mod_topdown28` here is the plain version of the
 Hopper kernel in csrc/mod_topdown.cu (ops/cuda_group.py dispatches between
 them); `mod_topdown`, the 24-bit-digit schedule, stays as a reference.
 
+`lehmer_euclid`, the engine of the opt-in NUCOMP composition tail, runs in
+torch ops on either device.
+
 Loop conditions are host syncs in eager PyTorch. Every loop body below is a
 fixed point on finished lanes, so the port may test the condition every few
 iterations without changing a result, as long as the iteration caps are
@@ -16,6 +19,7 @@ honoured exactly.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import limb as lb
 
@@ -23,6 +27,9 @@ MASK = lb.MASK
 BASE_BITS = lb.BASE_BITS
 I32 = torch.int32
 F32 = torch.float32
+
+# host syncs of the torch-op loops: one exit test every SYNC_EVERY iterations
+SYNC_EVERY = 4
 
 
 def carry_pass(x):
@@ -66,6 +73,42 @@ def value_est(x):
     top = torch.where(x != 0, idx, 0).amax(-1)
     mant = (x.to(F32) * pow2f(16 * (idx - top[..., None]))).sum(-1)
     return mant, top
+
+
+def _sum_ordered(t):
+    """Sum of f32 terms over the last axis, rounded step by step in the
+    order XLA's CPU backend gives the JAX package's value_est: a row of at
+    most 16 terms is added left to right from 0.0; a row of more than 32 is
+    padded with zeros to a multiple of 32 (the smaller half of the padding
+    in front), cut into windows of 32, each window summed left to right,
+    and the row of window sums reduced the same way. (Rows of 17-32 terms
+    XLA sums in a vectorized order this function does not reproduce; it
+    adds them left to right.)"""
+    while True:
+        n = t.shape[-1]
+        if n > 32:
+            pad = -n % 32
+            t = F.pad(t, (pad // 2, pad - pad // 2))
+            t = t.reshape(*t.shape[:-1], t.shape[-1] // 32, 32)
+        acc = torch.zeros(t.shape[:-1], dtype=t.dtype, device=t.device)
+        for k in range(t.shape[-1]):
+            acc = acc + t[..., k]
+        if n <= 32:
+            return acc
+        t = acc
+
+
+def value_est_ordered(x):
+    """value_est with its mantissa summed as the JAX function sums it on
+    the CPU (`_sum_ordered`), so that decisions taken on it are the JAX
+    package's, bit for bit, at widths of at most 16 or more than 32 limbs
+    (the main path's 72 and 144 among them). Costs ~40 torch ops more than
+    value_est; only the NUCOMP tail, whose cofactors depend on every
+    rounding of its steering, takes it."""
+    L = x.shape[-1]
+    idx = lb._arange(L, x.device)
+    top = torch.where(x != 0, idx, 0).amax(-1)
+    return _sum_ordered(x.to(F32) * pow2f(16 * (idx - top[..., None]))), top
 
 
 def bits_est(mant, top):
@@ -137,25 +180,27 @@ def mod_topdown(x, m_mag, active=None, max_iters: int | None = None):
 
 
 def digit_est(mant_x, top_x, mant_m, top_m, max_digit_bits: int = 28,
-              jmax=None):
+              jmax=None, exp_clamp: int = 60):
     """q = value(x) / value(m) as (qd, j) with q ~= qd * 2^(16 j), qd signed
     int32, |qd| < 2^max_digit_bits, 0 <= j <= jmax; m must be positive.
 
     Two departures from the JAX package's digit_est, both faults that stall
     its mod_topdown28 (ROADMAP queue 3): the scale's exponent is clamped at
-    60, not at max_digit_bits + 2 (ebits - 16 j reaches max_digit_bits + 16
-    when mant_x / mant_m is small, and the tighter clamp cuts the digit by
-    up to 2^14); and j is clipped to jmax before the digit is taken, so the
-    digit belongs to the shift it is applied at (the JAX loop clips j after,
-    and its digit then removes ~2^-16 of what it should). The digit clamp
-    is the real bound."""
+    exp_clamp = 60 by default, not at max_digit_bits + 2 (ebits - 16 j
+    reaches max_digit_bits + 16 when mant_x / mant_m is small, and the
+    tighter clamp cuts the digit by up to 2^14); and j is clipped to jmax
+    before the digit is taken, so the digit belongs to the shift it is
+    applied at (the JAX loop clips j after, and its digit then removes
+    ~2^-16 of what it should). The digit clamp is the real bound. A caller
+    that must give the JAX digits passes exp_clamp=max_digit_bits + 2 and
+    no jmax."""
     ratio = mant_x / mant_m.clamp(min=1e-30)
     ebits = 16 * (top_x - top_m)
     qbits = ebits + log2f_i(ratio) + 1
     j = torch.div(qbits - max_digit_bits + 15, 16, rounding_mode="floor").clamp(min=0)
     if jmax is not None:
         j = torch.minimum(j, jmax)
-    scale = pow2f((ebits - 16 * j).clamp(-126, 60))
+    scale = pow2f((ebits - 16 * j).clamp(-126, exp_clamp))
     lim = float((1 << max_digit_bits) - 1)
     qd = torch.round(ratio * scale).clamp(-lim, lim)
     return qd.to(I32), j.to(I32)
@@ -212,6 +257,127 @@ def mod_topdown28(x, m_mag, active=None, max_iters: int | None = None,
     if iters is not None:
         iters.copy_(count)
     return exact_mod_tail(xc, m)
+
+
+def lehmer_euclid(r0_mag, r1_mag, bits_stop, max_groups: int,
+                  sim_steps: int = 8, active=None, iters=None):
+    """Grouped partial extended Euclid (Lehmer style), batched: the NUCOMP
+    tail's walk down the continued fraction of r0 / r1.
+
+    Keeps EXACT invariants r_i = x_i * r0 + y_i * r1 for two rows (prev,
+    cur), starting ((r0, 1, 0), (r1, 0, 1)). Per group it simulates up to
+    `sim_steps` continued-fraction steps on ~27-bit int32 top-word
+    approximations of (rp, rc), accumulating a 2x2 matrix with entries
+    bounded by 2^13, and applies it once to the full-width redundant
+    (r, x, y) rows (int32-exact against balanced limbs). A lane whose
+    quotient exceeds what a 2^13 matrix can express (bits(rp) - bits(rc)
+    > 20, a "big" lane) takes one shifted ~24-bit digit step instead:
+    (rp, xp, yp) -= qd * 2^(16 jj) * (rc, xc, yc). Any unimodular step keeps
+    the invariants, so estimate noise can only slow progress.
+
+    Stops per lane when bits(rc) <= bits_stop, when yc outgrows
+    bits(r0) - bits_stop + 24, or at max_groups. Returns redundant signed
+    (rp, rc, xp, xc, yp, yc) and parity (row swaps mod 2, the sign of
+    det [[xp, yp], [xc, yc]]).
+
+    The port gives the JAX function's seven outputs on every lane, limb for
+    limb, at the widths where `value_est_ordered` sums as XLA does (at most
+    16 or more than 32 limbs; elsewhere a last-bit difference of an
+    estimate may pick other, equally valid cofactors): its estimates are
+    `value_est_ordered`; the digit of a big lane is
+    `digit_est` with the JAX exponent clamp (max_digit_bits + 2 = 26, not
+    this module's 60); the digit step is computed on every lane with no
+    condition and kept only where a lane is big (the JAX `lax.cond` on
+    any(big) selects the same); and a group that runs after the JAX loop
+    would have left (the host tests its condition every SYNC_EVERY groups)
+    is masked to the identity on the device. `iters`, if given, is a (B,)
+    int32 tensor that receives each lane's number of working groups."""
+    dev = r0_mag.device
+    if active is None:
+        active = torch.ones(r0_mag.shape[:-1], dtype=torch.bool, device=dev)
+    mant0, top0 = value_est_ordered(r0_mag)
+    y_cap = bits_est(mant0, top0) - bits_stop + 24.0
+    one = lb.one_limbs(r0_mag.shape[:-1], r0_mag.shape[-1], dev)
+    zero = torch.zeros_like(r0_mag)
+    LIM = 1 << 13
+
+    def ests(v):
+        mant, top = value_est_ordered(v)
+        return mant, top, bits_est(mant, top)
+
+    def submul_shift_red(x, v, qd, jj):
+        s = torch.sign(qd)
+        a = qd.abs()
+        lo = ((a & 0xFFF) * s)[..., None]
+        hi = ((a >> 12) * s)[..., None]
+        v12 = carry_pass(v << 12)
+        p = carry_pass(lo * v) + carry_pass(hi * v12)
+        return carry_pass(x - shl_limbs_take(p, jj))
+
+    def top_word(mant, top, sh):
+        """round(mant * 2^(16 top - sh)), the exponent clipped to
+        [-126, 30] in f32 and truncated, as the JAX function does."""
+        e = ((16 * top).to(F32) - sh).clamp(-126.0, 30.0).to(I32)
+        return torch.round(mant * pow2f(e)).to(I32)
+
+    rp, rc = carry_pass(r0_mag.to(I32)), carry_pass(r1_mag.to(I32))
+    xp, xc, yp, yc = one, zero, zero, one
+    par = torch.zeros(r0_mag.shape[:-1], dtype=I32, device=dev)
+    w = active & (bits_est(*value_est_ordered(r1_mag)) > bits_stop)
+    count = torch.zeros_like(par)
+    for it in range(max_groups):
+        go = w.any()  # the JAX loop's condition, on the device
+        if it % SYNC_EVERY == 0 and not bool(go):
+            break
+        mant_p, top_p, bits_p = ests(rp)
+        mant_c, top_c, bits_c = ests(rc)
+        bits_y = ests(yc)[2]
+        # fresh work mask; the carried w (one group stale) feeds the exit
+        w_f = active & (bits_c > bits_stop) & (bits_y < y_cap)
+        lane_on = w & w_f
+        big = lane_on & (bits_p - bits_c > 20.0)
+        qd, jj = digit_est(mant_p, top_p, mant_c.abs(), top_c, 24,
+                           exp_clamp=24 + 2)
+        qd = torch.where(big, qd * torch.sign(mant_c).to(I32), 0)
+        rp_d = submul_shift_red(rp, rc, qd, jj)
+        xp_d = submul_shift_red(xp, xc, qd, jj)
+        yp_d = submul_shift_red(yp, yc, qd, jj)
+
+        # Lehmer group on ~27-bit top words aligned at the larger row's scale
+        sh = torch.maximum(bits_p, bits_c) - 26.0
+        up, vc = top_word(mant_p, top_p, sh), top_word(mant_c, top_c, sh)
+        mp0, mp1 = torch.ones_like(up), torch.zeros_like(up)
+        mc0, mc1 = torch.zeros_like(up), torch.ones_like(up)
+        parg = torch.zeros_like(up)
+        sim_on = lane_on & ~big
+        for _ in range(sim_steps):
+            emax = torch.maximum(mc0.abs(), mc1.abs())
+            epmx = torch.maximum(mp0.abs(), mp1.abs())
+            qmax = torch.div(LIM - epmx, emax.clamp(min=1), rounding_mode="floor")
+            can = sim_on & (vc.abs() > 32) & (qmax > 0)
+            q = torch.div(up, torch.where(vc == 0, 1, vc), rounding_mode="floor")
+            q = torch.where(can, torch.minimum(torch.maximum(q, -qmax), qmax), 0)
+            up, vc = torch.where(can, vc, up), torch.where(can, up - q * vc, vc)
+            mp0, mp1, mc0, mc1 = (torch.where(can, mc0, mp0),
+                                  torch.where(can, mc1, mp1),
+                                  torch.where(can, mp0 - q * mc0, mc0),
+                                  torch.where(can, mp1 - q * mc1, mc1))
+            parg = parg ^ can.to(I32)
+
+        def app(a0, a1, pv, cv, dv):
+            out = carry_pass(a0[..., None] * pv + a1[..., None] * cv)
+            return torch.where(big[..., None], dv, out)
+
+        new = (app(mp0, mp1, rp, rc, rp_d), app(mc0, mc1, rp, rc, rc),
+               app(mp0, mp1, xp, xc, xp_d), app(mc0, mc1, xp, xc, xc),
+               app(mp0, mp1, yp, yc, yp_d), app(mc0, mc1, yp, yc, yc),
+               par ^ parg, w_f)
+        rp, rc, xp, xc, yp, yc, par, w = (torch.where(go, n, o) for n, o in zip(
+            new, (rp, rc, xp, xc, yp, yc, par, w)))
+        count = count + (lane_on & go).to(I32)
+    if iters is not None:
+        iters.copy_(count)
+    return rp, rc, xp, xc, yp, yc, par
 
 
 # ---------------------------------------------- 64-bit steering (K3 wide)

@@ -115,7 +115,7 @@ def test_reduce2_modes_match_jax(toy_hsm):
         fn = jax.jit(lambda x, y, g=grouped: jcg.compose2(x, y, grouped=g))
         assert _jax_out(fn, j1, j2) == want
         # reduce2 on its own, from the unreduced composition
-        a3, b3s, b3m, c3, id1, id2 = pcg.compose2_unreduced(p1, p2)
+        a3, b3s, b3m, c3, _, _, _, id1, id2 = pcg.compose2_unreduced(p1, p2)
         red = pcg.reduce2(a3, b3s[..., None] * b3m, c3, grouped=grouped)
         got = _tuples(bform_to_forms(red))
         live = [i for i in range(B) if not (bool(id1[i]) or bool(id2[i]))]

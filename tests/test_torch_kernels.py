@@ -158,7 +158,7 @@ def test_kernels_match_plain_on_card(cuda_device):
     base = gmp.nupow_batch([hsm.h] * 8, [rng.getrandbits(1000) for _ in range(8)])
     f1 = [base[rng.randrange(8)] for _ in range(77)]
     f2 = [base[rng.randrange(8)] for _ in range(77)]
-    a3, b3s, b3m, c3, _, _ = cg.compose2_unreduced(
+    a3, b3s, b3m, c3, *_ = cg.compose2_unreduced(
         bform_from_forms(f1, cg.L, cuda_device), bform_from_forms(f2, cg.L, cuda_device))
     args = (a3, b3s[..., None] * b3m, c3, cg.dD_mant, cg.dD_top, cg.red_iters)
     raw = cuda_group.reduce2_grouped_loop_cuda(*args)

@@ -10,6 +10,7 @@ tolerance; its limb index must match exactly.
 
 import random
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -217,3 +218,144 @@ def test_redc_pow16_matches_jax():
         assert 0 <= got[i] < 2 * ds[i], i
         if ds[i] > 1:
             assert got[i] % ds[i] == ss[i] * pow(1 << (16 * K), -1, ds[i]) % ds[i]
+
+
+# ----------------------------------- the limb functions of the v1 composition
+
+
+def test_canonicalize_scan_matches_jax():
+    """tests/test_limb.py:57 cases: the sequential carry scan and
+    canonicalize, against the JAX functions, Python ints and
+    canonicalize_fast; mag_is_zero on the results."""
+    rs = np.random.RandomState(57)
+    L = 20
+    for _ in range(5):
+        red = rs.randint(-2**28, 2**28, size=(16, L)).astype(np.int32)
+        red[:, -2:] = 0  # |value| < 2^(16 L)
+        red[3] = 0
+        for p, j in zip(lb._carry_scan(T(red)), jlb._carry_scan(jnp.asarray(red))):
+            same(p, j)
+        ps, pm = lb.canonicalize(T(red))
+        js, jm = jax.jit(jlb.canonicalize)(jnp.asarray(red))
+        same(ps, js)
+        same(pm, jm)
+        vals = [sum(int(red[i, j]) << (16 * j) for j in range(L)) for i in range(16)]
+        assert lb.limbs_to_ints(pm, ps) == vals
+        for p, f in zip((ps, pm), lb.canonicalize_fast(T(red))):
+            same(p, f)
+        same(lb.mag_is_zero(pm), jlb.mag_is_zero(jm))
+        assert lb.mag_is_zero(pm).tolist() == [v == 0 for v in vals]
+
+
+def test_sm_neg_cmp_redundant_match_jax():
+    """tests/test_limb.py:68 cases: sm_cmp, sm_neg and sm_redundant."""
+    rng = random.Random(68)
+    a = rand_ints(rng, 64, 700, signed=True)
+    b = rand_ints(rng, 64, 700, signed=True)
+    b[5] = a[5]
+    A = [T(x) for x in lb.ints_to_signed(a, 46)]
+    B = [T(x) for x in lb.ints_to_signed(b, 46)]
+    jA = [jnp.asarray(x.numpy()) for x in A]
+    jB = [jnp.asarray(x.numpy()) for x in B]
+    c = lb.sm_cmp(A, B)
+    same(c, jax.jit(jlb.sm_cmp)(jA, jB))
+    assert c.tolist() == [(x > y) - (x < y) for x, y in zip(a, b)]
+    ns, nm = lb.sm_neg(A)
+    for p, j in zip((ns, nm), jlb.sm_neg(jA)):
+        same(p, j)
+    assert lb.limbs_to_ints(nm, ns) == [-x for x in a]
+    red = lb.sm_redundant(A)
+    same(red, jlb.sm_redundant(jA))
+    assert lb.limbs_to_ints(*reversed(lb.canonicalize_fast(red))) == a
+
+
+@pytest.mark.parametrize("L_out", [None, 40])
+def test_sm_mul_sqr_match_jax(L_out):
+    """tests/test_limb.py:102 cases: sm_mul, and mag_sqr on |a|."""
+    rng = random.Random(102)
+    a = rand_ints(rng, 32, 400, signed=True)
+    b = rand_ints(rng, 32, 400, signed=True)
+    A = [T(x) for x in lb.ints_to_signed(a, 26)]
+    B = [T(x) for x in lb.ints_to_signed(b, 26)]
+    jA = [jnp.asarray(x.numpy()) for x in A]
+    jB = [jnp.asarray(x.numpy()) for x in B]
+    s, m = lb.sm_mul(A, B, L_out)
+    js, jm = jlb.sm_mul(jA, jB, L_out)
+    same(s, js)
+    same(m, jm)
+    mod = 1 << (16 * (L_out or 52))
+    assert lb.limbs_to_ints(m, s) == [(abs(x * y) % mod) * ((x * y > 0) - (x * y < 0))
+                                      for x, y in zip(a, b)]
+    sq = lb.mag_sqr(A[1], L_out)
+    same(sq, jlb.mag_sqr(jA[1], L_out))
+    assert lb.limbs_to_ints(sq) == [x * x % mod for x in a]
+
+
+@pytest.mark.parametrize("L_out", [None, 44])
+def test_sm_scalar_mul_matches_jax(L_out):
+    """tests/test_limb.py:111 cases."""
+    rng = random.Random(111)
+    a = rand_ints(rng, 32, 600, signed=True)
+    sc = np.array([rng.randrange(-2**14, 2**14) for _ in range(32)], dtype=np.int32)
+    sc[3] = 0
+    A = [T(x) for x in lb.ints_to_signed(a, 42)]
+    s, m = lb.sm_scalar_mul(A, T(sc), L_out)
+    js, jm = jlb.sm_scalar_mul([jnp.asarray(x.numpy()) for x in A], jnp.asarray(sc), L_out)
+    same(s, js)
+    same(m, jm)
+    assert lb.limbs_to_ints(m, s) == [x * int(y) for x, y in zip(a, sc)]
+
+
+def test_shr_limbs_shl8_digit_estimate_match_jax():
+    rng = random.Random(399)
+    a = [abs(x) for x in rand_ints(rng, 32, 600)]
+    ma = lb.ints_to_limbs(a, 40)
+    for n in (0, 1, 5, 39):
+        same(lb.mag_shr_limbs(T(ma), n), jlb.mag_shr_limbs(jnp.asarray(ma), n))
+        assert lb.limbs_to_ints(lb.mag_shr_limbs(T(ma), n)) == [x >> (16 * n) for x in a]
+    same(lb._shl8(T(ma), 40), jlb._shl8(jnp.asarray(ma), 40))
+    assert lb.limbs_to_ints(lb._shl8(T(ma), 40)) == [x << 8 for x in a]
+    # the digit estimate at every shift a 1200-bit by 700-bit division takes
+    b = [max(abs(x), 1) for x in rand_ints(rng, 32, 300, allow_zero=False)]
+    xm, xe = lb.mag_float(T(ma))
+    ym, ye = lb.mag_float(T(lb.ints_to_limbs(b, 40)))
+    jx = [jnp.asarray(v.numpy()) for v in (xm, xe)]
+    jy = [jnp.asarray(v.numpy()) for v in (ym, ye)]
+    for shift in range(0, 40 * 16, 16):
+        same(lb._div_digit_estimate(xm, xe, ym, ye, shift),
+             jlb._div_digit_estimate(*jx, *jy, shift))
+
+
+_jdivmod = jax.jit(jlb.mag_divmod, static_argnames=("Lq",))
+
+
+def _divmod_case(xs, ys, L, Lq):
+    mx, my = lb.ints_to_limbs(xs, L), lb.ints_to_limbs(ys, L)
+    q, r = lb.mag_divmod(T(mx), T(my), Lq)
+    jq, jr = _jdivmod(jnp.asarray(mx), jnp.asarray(my), Lq)
+    same(q, jq)
+    same(r, jr)
+    assert lb.limbs_to_ints(q) == [x // y for x, y in zip(xs, ys)]
+    assert lb.limbs_to_ints(r) == [x % y for x, y in zip(xs, ys)]
+    same(lb.mag_mod(T(mx), T(my), Lq), jr)
+
+
+def test_divmod_matches_jax():
+    """tests/test_limb.py:156 cases."""
+    rng = random.Random(156)
+    xs = [abs(x) for x in rand_ints(rng, 64, 1200)]
+    ys = [max(abs(y), 1) for y in rand_ints(rng, 64, 700, allow_zero=False)]
+    _divmod_case(xs, ys, 80, (1200 - 1) // 16 + 2)
+
+
+def test_divmod_adversarial_matches_jax():
+    """tests/test_limb.py:171 cases: x = q*y + {0, 1, y-1}."""
+    rng = random.Random(171)
+    cases = []
+    for _ in range(40):
+        y = rng.getrandbits(rng.randrange(2, 500)) + 1
+        q = rng.getrandbits(rng.randrange(1, 500))
+        for r in (0, 1, y - 1):
+            cases.append((q * y + r, y))
+    L = (1000 // 16) + 4
+    _divmod_case([c[0] for c in cases], [c[1] for c in cases], L, L)

@@ -179,7 +179,7 @@ def _rho_operands(hsm, B, seed):
 
 def _check_wide_against_jax(hsm, f1, f2):
     jcg, pcg, L = _cgs(hsm)
-    a3, b3s, b3m, c3, _, _ = pcg.compose2_unreduced(
+    a3, b3s, b3m, c3, *_ = pcg.compose2_unreduced(
         bform_from_forms(f1, L, "cpu"), bform_from_forms(f2, L, "cpu"))
     bred = b3s[..., None] * b3m
     args = (pcg.dD_mant, pcg.dD_top, pcg.red_iters)
@@ -267,7 +267,7 @@ def test_wide_rho_loop_stops_at_red_iters_and_tail_finishes(toy_hsm):
     that the exact tail still takes to the same reduced forms."""
     _, pcg, L = _cgs(toy_hsm)
     f1, f2 = _rho_operands(toy_hsm, 16, 23)
-    a3, b3s, b3m, c3, _, _ = pcg.compose2_unreduced(
+    a3, b3s, b3m, c3, *_ = pcg.compose2_unreduced(
         bform_from_forms(f1, L, "cpu"), bform_from_forms(f2, L, "cpu"))
     args = (a3, b3s[..., None] * b3m, c3, pcg.dD_mant, pcg.dD_top)
     full_it = torch.zeros(16, dtype=torch.int64)
