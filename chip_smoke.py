@@ -3,20 +3,33 @@
 
     python3 chip_smoke.py       # from the root of a checkout
 
-1. Builds the Hopper kernels from cofhe_tpu_torch/csrc with nvcc and holds
-   each one against its plain torch version on the card, at the shapes the
-   main path gives it and at 128, 1001 and 16384 lanes (bit-exact, and
-   against Python integers and GMP), timing both; K2 also on the edge cases
-   of its wide digit.
+1. Builds the four Hopper kernels from cofhe_tpu_torch/csrc with nvcc and
+   holds each one against its plain torch version on the card, at the
+   shapes the main path gives it and at 128, 1001 and 16384 lanes
+   (bit-exact, and against Python integers and GMP), timing both; K2 also
+   on the edge cases of its wide digit. KT, the exact tail, runs on K3's
+   outputs of real compose2 operands (self-composes, inverse pairs and
+   powers of f, which drop deep into the tail), must give GMP's composes,
+   and on edge cases (b = -a, a = c with b < 0, a > c, reduced forms, and
+   forms of the discriminant translated by quotients of up to ~600 bits)
+   the Python oracle's and GMP's reduced forms; no lane may reach its cap.
 2. Drives the main path once at sec=128, k=128 through the facade:
    keygen, encrypt_tensor ct(2x64), scal_ciphertext_tensors with pt(64x64)
    (16384 ladder lanes), decrypt_tensor; every plaintext must equal the
    integer matmul mod 2^128, every kernel's launch counter must have grown,
    and two output ciphertexts must be bit-identical to the GMP host
-   backend's for the same inputs and Enc(0). Wrappers around the three
-   kernels count each kernel's launches by shape and batch and record the
-   operands of one decrypt compose2 (128 lanes), one chain compose2 (256)
-   and one ladder compose2 (16384). K1 is then checked again, with and
+   backend's for the same inputs and Enc(0). Each compose2 on the card is
+   a replay of the CG's CUDA graph for its batch (ops/graphs.py), captured
+   at first use after one eager warm-up; the launch counters count each
+   replay's captured kernels, by (kernel, width, nbits or Lm, batch). Each
+   graph's warm-up and capture seconds and its memory pool are printed.
+   The main path's 128 ciphertexts are then decrypted once more by graph
+   replays and once by an eager engine (graphs=False): the c1^sk forms and
+   the plaintexts must be bit-identical, and the K1, K2, K3 and KT launch
+   counts equal; both wall times are printed. Operands are recorded from
+   the eager calls (a replay calls no wrapper): one decrypt compose2 (128
+   lanes) from the eager decrypt, one chain (256) and one ladder (16384)
+   compose2 from the graphs' warm-ups. K1 is then checked again, with and
    without need_u, on the recorded decrypt lanes whose gcd is above 1
    (there cg is not unique mod m: only the reference's divstep sequence
    gives it).
@@ -55,19 +68,23 @@
    the engine's bank + segments (part_decrypt_batch) and GMP's nupow; the
    v1 compose_batch / nudupl_batch (torch ops only, with ops/xgcd.py) must
    equal compose2 / nudupl2 and GMP, and one xgcd_mod batch math.gcd and
-   the Bezout identity mod m. One NUCOMP compose2 is profiled beside one
-   default compose2 on the same 128 forms: wall and device time (the
-   device's busy share), device time split by kernel, device kernels and
-   copies, exact-tail iterations and Lehmer groups.
+   the Bezout identity mod m. One compose2 on the same 128 forms is
+   profiled three ways: eager, as a graph replay, and with the NUCOMP
+   tail: wall and device time (the device's busy share), device time
+   split by kernel, device kernels and copies, and Lehmer groups.
    Each path (main, engine ops, network, mesh, legacy) is driven with the
    launch counts set to 0 just before it and read just after (on the mesh:
-   each rank's, summed); every kernel must launch in each.
+   each rank's, summed); every kernel must launch in each, and the counts
+   by (kernel, batch) must equal those kept apart from them (each eager
+   dispatcher call plus each graph replay's captured kernels,
+   tools/mesh_check.count_calls), on each mesh rank too.
 7. The kernel table: every kernel at every recorded main-path shape and
    batch, checked against its plain versions (K1 also against Python's
-   gcd and the Bezout identity), with its trip counts (K1 in groups and
-   in divsteps), time and bound (also at the earlier kernels' per-limb
+   gcd and the Bezout identity, KT against the Python oracle), with its
+   trip counts (K1 in groups and in divsteps, KT in steps: its exact-tail
+   iterations), time and bound (also at the earlier kernels' per-limb
    operation counts: the 13-divstep K1, the 24-bit-digit K2, the
-   2^12-budget K3), and K3 at the legacy path's width 272.
+   2^12-budget K3), and K3 and KT at the legacy path's width 272.
 8. Prints the card's name and power limit, one JSON line with each
    kernel's numbers (launches in all and by path), and as the last line
    {"ok": true, "device": {...}}.
@@ -80,6 +97,7 @@ earlier csrc/'s kernels beside this tree's on the same recorded operands.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -103,11 +121,10 @@ MESH_LADDER_B = 2 * N_ROWS * (M_INNER // MESH_RANKS) * P_COLS  # 8192 a rank
 MESH_TIMEOUT_S = 420  # a rank's whole run
 NET_DIM = 4        # the network's ct(4x4) . ct(4x4) Beaver matmul
 OPENING_B = 2 * NET_DIM ** 3  # ciphertexts of its opening round
-# the node runtime's RPC and client timeouts (120 s by default) must cover
-# a part-decryption ladder on the card (~200 s at sec=128); the triplet
-# cache deals exactly the 64 triplets of the matmul
-NODE_ENV = {"COFHE_RPC_TIMEOUT": "900", "COFHE_CLIENT_TIMEOUT_S": "900",
-            "COFHE_TRIPLET_CACHE": str(NET_DIM ** 3)}
+# the triplet cache deals exactly the 64 triplets of the matmul; the node
+# runtime's default 120 s RPC and client timeouts cover a part-decryption
+# ladder on the card by graph replays (~16 s at sec=128, PERF.md)
+NODE_ENV = {"COFHE_TRIPLET_CACHE": str(NET_DIM ** 3)}
 TABLE_B = (128, 256, 16384)  # decrypt, chain, ladder compose2 batches
 LEGACY_B = 128         # lanes of the legacy path
 LEGACY_EXP_BITS = 128  # its shared wNAF exponent
@@ -133,6 +150,13 @@ INT32_OPS_PER_S = 67e12 / 2 / 2
 # K2 20 and 2^12-budget K3 74 (lower: they leave out the redesigns' extra
 # carry pass, value estimates and wider spreads).
 OPS_K1, OPS_K1_U, OPS_K2, OPS_K3 = 83 / 30, 46 / 30, 36, 147
+# KT per step and limb, as a translation: two value estimates (8), two
+# shifted 64-bit products with their 4-digit spreads and carry passes (56),
+# the b' and aq - b sums (6), three canonicalizations (90: two floor
+# passes, the carry-map code and its warp scan, the fix-up), three
+# comparisons and the c update (10); a step that is only a rho costs a
+# register swap, so the count is an upper one
+OPS_KT = 170
 OPS_K1_OLD, OPS_K2_OLD, OPS_K3_OLD = 108 / 13, 20, 74
 TIMING_REPS = 5
 
@@ -343,14 +367,107 @@ def check_k3(torch, cgp, cg, f2m, gmp, hsm, bform_from_forms, bform_to_forms, rn
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, err=err)
 
 
+def kt_edge_forms(base, rng, L, n):
+    """n positive definite edge-case forms for KT, with each one's reduced
+    form from the Python oracle: b = -a, a = c with b < 0, normal with
+    a > c, reduced forms of the discriminant (GMP's), and those forms
+    translated by quotients of up to ~600 bits and rotated (a rho),
+    whose reduced form is GMP's form again."""
+    from cofhe_tpu_torch.core.qfi import Form, reduce_form
+
+    forms, want = [], []
+    for i in range(n):
+        kind = i % 6
+        a = rng.getrandbits(rng.randrange(20, 1000)) | 1
+        if kind == 0:
+            f = Form(a, -a, a + rng.getrandbits(900))
+        elif kind == 1:
+            f = Form(a, -rng.randrange(1, a), a)
+        elif kind == 2:
+            c = rng.randrange(a // 2 + 1, a)
+            f = Form(a, rng.randrange(-c + 1, c), c)
+        else:
+            g = base[rng.randrange(len(base))]
+            f = g
+            if kind >= 4:  # c' ~ a t^2 keeps 64 bits of room in L limbs
+                t_bits = (16 * L - 64 - g.a.bit_length()) // 2
+                t = rng.getrandbits(rng.randrange(1, t_bits)) * rng.choice((1, -1))
+                f = Form(g.a, g.b + 2 * g.a * t, g.c + g.b * t + g.a * t * t)
+            if kind == 5:
+                f = Form(f.c, -f.b, f.a)
+            forms.append(f)
+            want.append(g)
+            continue
+        forms.append(f)
+        want.append(reduce_form(f))
+    if [reduce_form(f) for f in forms] != want:
+        fail("the KT edge cases' oracle disagrees with GMP's reduced forms")
+    return forms, want
+
+
+def check_kt(torch, cgp, cg, gmp, hsm, port, rng, B):
+    """KT on K3's outputs of B compose2 operand pairs (random powers of h,
+    self-composes, inverse pairs, powers of f) and, at 128 lanes, on edge
+    cases: bit-exact against its plain version, GMP's composes and the
+    Python oracle, every lane reduced before the cap."""
+    from cofhe_tpu_torch.core.qfi import is_reduced, neg, reduce_form
+
+    base = gmp.nupow_batch([hsm.h] * 64, [rng.getrandbits(1100) for _ in range(64)])
+    f1 = [base[rng.randrange(64)] for _ in range(B)]
+    f2 = [base[rng.randrange(64)] for _ in range(B)]
+    for i in range(0, min(B, 96), 6):
+        f1[i] = f2[i]                                  # a self-compose
+        f1[i + 1] = reduce_form(neg(f2[i + 1]))        # an inverse pair
+        f1[i + 2] = hsm.power_of_f(rng.getrandbits(K))
+        f2[i + 3] = hsm.power_of_f(rng.getrandbits(K))
+    b1 = port.bform_from_forms(f1, cg.L, "cuda")
+    b2 = port.bform_from_forms(f2, cg.L, "cuda")
+    cap = cg.tail_iters
+    with torch.inference_mode():
+        a3, b3s, b3m, c3, *_ = cg.compose2_unreduced(b1, b2)
+        raw = cgp.reduce2_grouped_loop_cuda(a3, b3s[..., None] * b3m, c3, cg.dD_mant,
+                                            cg.dD_top, cg.red_iters)
+        cases = [("compose", raw, gmp.compose_batch(f1[:256], f2[:256]))]
+        if B == SMALL_B:
+            forms, want = kt_edge_forms(base, rng, cg.L, B)
+            e = port.bform_from_forms(forms, cg.L, "cuda")
+            cases.append(("edge cases", (e.a, e.b_sign[:, None] * e.b, e.c), want))
+        for label, (a, b, c), want in cases:
+            iters = torch.zeros(B, dtype=torch.int32, device="cuda")
+            got = cgp.reduce_exact_cuda(a, b, c, cap, iters=iters)
+            err = max_abs_diff(torch, got, cgp.reduce_exact_plain(a, b, c, cap))
+            if err:
+                fail(f"KT B={B} ({label}) differs from its plain version (max {err})")
+            out = port.bform_to_forms(got)
+            if out[:len(want)] != want or not all(is_reduced(f) for f in out):
+                fail(f"KT B={B} ({label}): reduced forms differ from GMP's / the oracle's")
+            if int(iters.max()) > cap:
+                fail(f"KT B={B} ({label}): a lane reached the cap of {cap} steps")
+            log(f"KT reduce_exact L={cg.L} B={B} ({label}): bit-exact vs plain, equal "
+                f"to {'GMP' if label == 'compose' else 'the oracle and GMP'}, steps "
+                f"{_stats(iters)} (cap {cap})")
+            if label == "compose":
+                kt_iters = iters
+        ms = timed(torch, lambda: cgp.reduce_exact_cuda(*raw, cap), TIMING_REPS)
+        plain_ms = timed(torch, lambda: cgp.reduce_exact_plain(*raw, cap), 1,
+                         warm=False) if B == KERNEL_B else float("nan")
+    ops = float(kt_iters.long().sum()) * cg.L * OPS_KT
+    bms, by = bound(ops, 4.0 * B * (6 * cg.L + 2))
+    log(f"KT reduce_exact L={cg.L} B={B}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+        f"bound {bms:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, err=0)
+
+
 # ------------------------------------------- main-path operands and launches
 
 
 class Recorder:
-    """Wraps the three kernel wrappers of cuda_group for the main path's
-    run: counts each kernel's launches by (name, width, nbits, batch) and
-    keeps the operands of the first call at each shape in the chosen
-    (phase, batch) pairs. Not part of the package; removed after the run."""
+    """Wraps the four kernel wrappers of cuda_group: keeps the operands of
+    the first eager call at each (kernel, width, nbits or Lm, batch) key in
+    the chosen (phase, batch) pairs. A graph replay calls no wrapper and a
+    capture runs no kernel, so operands come from eager calls only (a
+    graph's warm-up is one); cuda_group counts the launches by key itself.
+    Not part of the package; removed after the run."""
 
     WANT = {("decrypt", 128), ("matmul", 256), ("matmul", 16384)}
 
@@ -358,39 +475,43 @@ class Recorder:
         self.torch, self.cgp = torch, cgp
         self.want = self.WANT if want is None else want
         self.phase = None
-        self.counts: dict = {}
         self.ops: dict = {}
         self.orig = {n: getattr(cgp, n) for n in (
-            "xgcd_coeff_g_cuda", "mod_topdown_cuda", "reduce2_grouped_loop_cuda")}
+            "xgcd_coeff_g_cuda", "mod_topdown_cuda", "reduce2_grouped_loop_cuda",
+            "reduce_exact_cuda")}
 
-    def _note(self, key, B, args):
-        full = key + (B,)
-        self.counts[full] = self.counts.get(full, 0) + 1
-        if (self.phase, B) in self.want and full not in self.ops:
-            self.ops[full] = tuple(a.clone() if isinstance(a, self.torch.Tensor)
-                                   else a for a in args)
+    def _note(self, key, args):
+        if (self.phase, key[3]) in self.want and key not in self.ops \
+                and not self.torch.cuda.is_current_stream_capturing():
+            self.ops[key] = tuple(a.clone() if isinstance(a, self.torch.Tensor)
+                                  else a for a in args)
 
     def __enter__(self):
         rec, orig = self, self.orig
 
         def xgcd(f, g, m, nbits, need_u=False, iters=None):
-            rec._note(("xgcd_coeff_g", f.shape[1], nbits), f.shape[0], (f, g, m, nbits))
+            rec._note(("xgcd_coeff_g", f.shape[1], nbits, f.shape[0]), (f, g, m, nbits))
             return orig["xgcd_coeff_g_cuda"](f, g, m, nbits, need_u=need_u, iters=iters)
 
         def mod(x, m, max_iters, iters=None):
-            rec._note(("mod_topdown", x.shape[1], m.shape[1]), x.shape[0],
+            rec._note(("mod_topdown", x.shape[1], m.shape[1], x.shape[0]),
                       (x, m, max_iters))
             return orig["mod_topdown_cuda"](x, m, max_iters, iters=iters)
 
         def red(a, b, c, dD_mant, dD_top, red_iters, iters=None):
-            rec._note(("reduce2_grouped", a.shape[1], 0), a.shape[0],
+            rec._note(("reduce2_grouped", a.shape[1], 0, a.shape[0]),
                       (a, b, c, dD_mant, dD_top, red_iters))
             return orig["reduce2_grouped_loop_cuda"](a, b, c, dD_mant, dD_top,
                                                      red_iters, iters=iters)
 
+        def exact(a, b, c, max_iters, iters=None):
+            rec._note(("reduce_exact", a.shape[1], 0, a.shape[0]), (a, b, c, max_iters))
+            return orig["reduce_exact_cuda"](a, b, c, max_iters, iters=iters)
+
         self.cgp.xgcd_coeff_g_cuda = xgcd
         self.cgp.mod_topdown_cuda = mod
         self.cgp.reduce2_grouped_loop_cuda = red
+        self.cgp.reduce_exact_cuda = exact
         return self
 
     def __exit__(self, *exc):
@@ -402,19 +523,48 @@ class Recorder:
 # ---------------------------------------------------------------- the path
 
 
-def check_path_launches(cgp, rec, path: str) -> dict:
-    """Every kernel launched in `path`'s run, and the recorder saw each
-    launch; returns the counts."""
-    launches = dict(cgp.LAUNCHES)
+# kernels run by 'kernel@batch', counted apart from cuda_group's counters
+# (tools/mesh_check.count_calls: eager dispatcher calls and each replay's
+# captured kernels); installed by main()
+CALLS: dict = {}
+
+
+def reset_counts(cgp) -> None:
+    """Set the launch counts, and the count kept apart from them, to 0."""
+    cgp.reset_launches()
+    CALLS.clear()
+
+
+def check_path_launches(cgp, path: str):
+    """Every kernel launched in `path`'s run (graph replays counted), and
+    cuda_group's counts by (kernel, batch) equal to CALLS, counted apart
+    from them; returns (launches, launches by key)."""
+    launches, by_key = dict(cgp.LAUNCHES), dict(cgp.LAUNCHES_BY_KEY)
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the {path}")
-        if sum(v for k, v in rec.counts.items() if k[0] == name) != n:
-            fail(f"the recorder's count of {name} disagrees with LAUNCHES ({path})")
+    by_batch: dict = {}
+    for (name, _, _, batch), n in by_key.items():
+        by_batch[f"{name}@{batch}"] = by_batch.get(f"{name}@{batch}", 0) + n
+    if by_batch != CALLS or any(
+            n != sum(v for k, v in CALLS.items() if k.split("@")[0] == name)
+            for name, n in launches.items()):
+        fail(f"the {path}'s launch counts {json.dumps(by_batch)} disagree with the "
+             f"dispatcher calls and graph replays {json.dumps(CALLS)}")
     log(f"{path} launches: " + json.dumps(launches))
     log(f"{path} launches by (kernel, width, nbits or Lm, batch): " + json.dumps(
-        {",".join(map(str, k)): v for k, v in sorted(rec.counts.items())}))
-    return launches
+        {",".join(map(str, k)): v for k, v in sorted(by_key.items())}))
+    return launches, by_key
+
+
+def report_graphs(cg, label: str) -> None:
+    """Each compose2 graph of `cg`: batch, warm-up and capture seconds,
+    the memory its capture reserved, replays."""
+    for (dev, B, L), g in sorted(cg.compose_graphs.graphs.items(), key=lambda x: x[0][1]):
+        log(f"graph {label} B={B} L={L} on {dev}: warm-up {g.warmup_s:.3f} s, capture "
+            f"{g.capture_s:.3f} s, memory_reserved {g.reserved_before / 2**20:.1f} -> "
+            f"{g.reserved_after / 2**20:.1f} MiB (pool {g.pool_bytes / 2**20:.1f} MiB), "
+            f"{len(g.keys)} kernel launches a replay, {g.replays} replays")
 
 
 def run_slice(torch, cgp, rec, CryptoSystem, Tensor, GmpEngine, rng):
@@ -432,7 +582,7 @@ def run_slice(torch, cgp, rec, CryptoSystem, Tensor, GmpEngine, rng):
     sv = [rng.randrange(M) for _ in range(M_INNER * P_COLS)]
     pt = Tensor(sv, (M_INNER, P_COLS))
 
-    cgp.reset_launches()
+    reset_counts(cgp)
     with rec:
         rec.phase = "encrypt"
         with timer("encrypt_s"):
@@ -442,18 +592,17 @@ def run_slice(torch, cgp, rec, CryptoSystem, Tensor, GmpEngine, rng):
         # the generator replays it for the host check below
         rand_at_matmul = copy.deepcopy(cs.rand_gen)
         rec.phase = "matmul"
-        with timer("matmul_s"), TailCount() as tail:
+        with timer("matmul_s"):
             res = cs.scal_ciphertext_tensors(pk, pt, ct)
             torch.cuda.synchronize()
-        phases["matmul_tail_iters"] = tail.n
         phases.update({f"matmul_{k}": v
                        for k, v in cs._engine.last_matmul_phases.items()})
         rec.phase = "decrypt"
-        with timer("decrypt_s"), TailCount() as tail:
+        with timer("decrypt_s"):
             dec = cs.decrypt_tensor(sk, res)
             torch.cuda.synchronize()
-        phases["decrypt_tail_iters"] = tail.n
-    launches = check_path_launches(cgp, rec, "main path")
+    launches, by_key = check_path_launches(cgp, "main path")
+    report_graphs(cs._engine.cg, "main path")
 
     for i in range(N_ROWS):
         for kk in range(P_COLS):
@@ -480,7 +629,46 @@ def run_slice(torch, cgp, rec, CryptoSystem, Tensor, GmpEngine, rng):
         f"{N_ROWS * P_COLS} plaintexts correct, every output form reduced, "
         f"2 ciphertexts bit-identical to GMP")
     log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
-    return launches, dict(cs=cs, sk=sk, pk=pk, ct=ct, ctv=ctv, pt=pt, res=res, zero=zero)
+    return launches, by_key, dict(cs=cs, sk=sk, pk=pk, ct=ct, ctv=ctv, pt=pt, res=res,
+                                  zero=zero, dec=dec, rand_at_matmul=rand_at_matmul)
+
+
+def compare_decrypt(torch, cgp, port, rec, main):
+    """The main path's 128 ciphertexts decrypted once more by graph replays
+    (the main engine, its graphs captured) and once by an eager engine:
+    the c1^sk forms and the plaintexts must be bit-identical, and equal to
+    the main path's, and the K1-KT launch counts equal. The eager run
+    records the decrypt operands."""
+    from cofhe_tpu_torch.core.qfi import neg, reduce_form
+
+    cs, sk, res = main["cs"], main["sk"], main["res"]
+    cts = list(res.data)
+    runs = {}
+    for label, eng in (("graph", cs._engine),
+                       ("eager", port.TorchEngine(cs.hsm2k, "cuda", graphs=False))):
+        reset_counts(cgp)
+        rec.phase = "decrypt"
+        with rec if label == "eager" else contextlib.nullcontext():
+            t = time.perf_counter()
+            c1sk = eng.part_decrypt_batch(sk, cts)
+            fm = eng.compose_forms_batch([c.c2 for c in cts],
+                                         [reduce_form(neg(f)) for f in c1sk])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        check_path_launches(cgp, f"{label} decrypt")
+        pts = [cs.hsm2k.dlog_in_F(f) for f in fm]
+        runs[label] = (c1sk, pts, secs, dict(cgp.LAUNCHES))
+    (gf, gp, gs, gl), (ef, ep, es, el) = runs["graph"], runs["eager"]
+    if gf != ef or gp != ep:
+        fail("graph and eager decrypts of the same ciphertexts differ")
+    if gp != list(main["dec"].data):
+        fail("the graph decrypt differs from the main path's decrypt_tensor")
+    if gl != el:
+        fail(f"graph and eager decrypts launched different kernels: {gl} / {el}")
+    log(f"decrypt of {len(cts)} ciphertexts, graph replays against eager on one card: "
+        f"c1^sk forms and plaintexts bit-identical; graph {gs:.3f} s, eager {es:.3f} s "
+        f"({es / gs:.2f}x); launches of each " + json.dumps(gl))
+    return dict(graph_s=gs, eager_s=es)
 
 
 def run_engine_ops(torch, cgp, port, main, rng):
@@ -498,23 +686,18 @@ def run_engine_ops(torch, cgp, port, main, rng):
     gmp = port.hostgmp.GmpEngine(cs.hsm2k)
     timer = PhaseTimer("cuda")
     phases = timer.phases
-    rec = Recorder(torch, cgp)
-    rec.phase = "engine_ops"
-    cgp.reset_launches()
-    with rec:
-        with timer("add_s"):
-            added = cs.add_ciphertext_vectors(pk, cts, others)
-            torch.cuda.synchronize()
-        with timer("scal_s"), TailCount() as tail:
-            scaled = cs.scal_ciphertext_vector(pk, scal, cts)
-            torch.cuda.synchronize()
-        phases["scal_tail_iters"] = tail.n
-        pdrs = [gmp.part_decrypt_batch(s, scaled) for s in sh]
-        with timer("combine_s"), TailCount() as tail:
-            combined = cs.combine_part_decryption_results_vector(scaled, pdrs)
-            torch.cuda.synchronize()
-        phases["combine_tail_iters"] = tail.n
-    launches = check_path_launches(cgp, rec, "engine-ops path")
+    reset_counts(cgp)
+    with timer("add_s"):
+        added = cs.add_ciphertext_vectors(pk, cts, others)
+        torch.cuda.synchronize()
+    with timer("scal_s"):
+        scaled = cs.scal_ciphertext_vector(pk, scal, cts)
+        torch.cuda.synchronize()
+    pdrs = [gmp.part_decrypt_batch(s, scaled) for s in sh]
+    with timer("combine_s"):
+        combined = cs.combine_part_decryption_results_vector(scaled, pdrs)
+        torch.cuda.synchronize()
+    launches, _ = check_path_launches(cgp, "engine-ops path")
     if added != gmp.add_batch(cts, others):
         fail("add_ciphertext_vectors differs from GMP's add_batch")
     if scaled != gmp.scal_batch(scal, cts):
@@ -575,6 +758,11 @@ def run_mesh(torch, cgp, port, main, ops):
     for name, n in launches.items():
         if n <= 0 or any(o["launches"][name] <= 0 for o in outs):
             fail(f"kernel {name} was not launched on every mesh rank")
+        for o in outs:  # the launches against the rank's count apart from them
+            if o["launches"][name] != sum(v for k, v in o["calls"].items()
+                                          if k.split("@")[0] == name):
+                fail(f"mesh rank {o['rank']}: {name} launches {o['launches'][name]} "
+                     f"disagree with its dispatcher calls and replays {o['calls']}")
     for o in outs:
         log(f"mesh rank {o['rank']} at {o['coord']}: launches "
             + json.dumps(o["launches"]) + ", by kernel@batch " + json.dumps(o["calls"])
@@ -658,19 +846,15 @@ def run_network(torch, cgp, port, rng):
                      f"{resp.data[:300]!r}")
             return cs.deserialize_ciphertext_tensor(resp.data)
 
-        rec = Recorder(torch, cgp)
-        rec.phase = "network"
-        cgp.reset_launches()
-        with rec, TailCount() as tail:
-            t = time.perf_counter()
-            prod = request(wire.ComputeOperation.MULTIPLY)
-            phases["multiply_s"] = time.perf_counter() - t
-            t = time.perf_counter()
-            summed = request(wire.ComputeOperation.ADD)
-            phases["add_s"] = time.perf_counter() - t
-            torch.cuda.synchronize()
-        phases["tail_iters"] = tail.n
-        launches = check_path_launches(cgp, rec, "network path")
+        reset_counts(cgp)
+        t = time.perf_counter()
+        prod = request(wire.ComputeOperation.MULTIPLY)
+        phases["multiply_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        summed = request(wire.ComputeOperation.ADD)
+        phases["add_s"] = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches, by_key = check_path_launches(cgp, "network path")
         combo = compute.smpc._combo
     finally:
         if client is not None:
@@ -695,7 +879,7 @@ def run_network(torch, cgp, port, rng):
         fail(f"CoFHE node 0 did not part-decrypt the {OPENING_B}-ciphertext opening "
              f"on the card: {node0_calls}")
     at_opening = {}
-    for key, v in rec.counts.items():
+    for key, v in by_key.items():
         if key[3] == OPENING_B:
             at_opening[key[0]] = at_opening.get(key[0], 0) + v
     phases["node0_part_decrypt_s"] = opened[0][1]
@@ -745,8 +929,8 @@ def run_legacy(torch, cgp, port, main, rng):
     phases = timer.phases
     rec = Recorder(torch, cgp, want={("legacy", LEGACY_B)})
     rec.phase = "legacy"
-    cgp.reset_launches()
-    with rec, torch.inference_mode(), TailCount() as tail:
+    reset_counts(cgp)
+    with rec, torch.inference_mode():
         with timer("nucomp_compose2_s"):
             nc = ncg.compose2(b1, b2)
             torch.cuda.synchronize()
@@ -767,10 +951,10 @@ def run_legacy(torch, cgp, port, main, rng):
                   for v in (xf, xg)]
             xo = xgcd.xgcd_mod(xl[0], xl[1], xl[0], spec.n_bits)
             torch.cuda.synchronize()
-    phases["tail_iters"] = tail.n
-    launches = check_path_launches(cgp, rec, "legacy path")
-    if not any(k[0] == "reduce2_grouped" and k[1] == ncg.Ln for k in rec.counts):
-        fail(f"the NUCOMP reduction did not launch K3 at width {ncg.Ln}")
+    launches, by_key = check_path_launches(cgp, "legacy path")
+    for name in ("reduce2_grouped", "reduce_exact"):
+        if not any(k[0] == name and k[1] == ncg.Ln for k in by_key):
+            fail(f"the NUCOMP reduction did not launch {name} at width {ncg.Ln}")
 
     with timer("checks_s"), torch.inference_mode():
         want_c, want_d = gmp.compose_batch(f1, f2), gmp.nudupl_batch(f1)
@@ -800,11 +984,13 @@ def run_legacy(torch, cgp, port, main, rng):
         f"identity mod m; phase seconds: "
         + json.dumps({k: (round(x, 3) if isinstance(x, float) else x)
                       for k, x in phases.items()}))
-    seed = rng.getrandbits(64)  # both profiles compose the same forms
-    for c, label in ((cg, "default tail"), (ncg, "NUCOMP tail")):
+    seed = rng.getrandbits(64)  # every profile composes the same forms
+    ecg = port.f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, graphs=False)
+    for c, label in ((ecg, "default tail, eager"), (cg, "default tail, graph replay"),
+                     (ncg, "NUCOMP tail")):
         profile_compose(torch, c, gmp, hsm, port.bform_from_forms,
                         random.Random(seed), label)
-    return launches, rec
+    return launches, by_key, rec
 
 
 # --------------------------------------------------------- the kernel table
@@ -814,27 +1000,6 @@ def _stats(t) -> str:
     return f"mean {float(t.float().mean()):.2f} max {int(t.max())}"
 
 
-class TailCount:
-    """Counts the iterations of the exact tail (forms.reduce_batch calls
-    forms._is_reduced once an iteration) inside a with block."""
-
-    def __enter__(self):
-        from cofhe_tpu_torch.ops import forms
-
-        self.forms, self.orig, self.n = forms, forms._is_reduced, 0
-
-        def counted(bf):
-            self.n += 1
-            return self.orig(bf)
-
-        forms._is_reduced = counted
-        return self
-
-    def __exit__(self, *exc):
-        self.forms._is_reduced = self.orig
-        return False
-
-
 def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
     """One kernel at one recorded main-path shape and batch: checks, trip
     counts, time and bound. Returns its JSON entry."""
@@ -842,7 +1007,7 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
     dev = args[0].device
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
     row = {"name": f"{name}[W={W},{'nbits' if name == 'xgcd_coeff_g' else 'Lm'}="
-                   f"{extra}]@B={B}" if name != "reduce2_grouped" else f"{name}[W={W}]@B={B}",
+                   f"{extra}]@B={B}" if not extra else f"{name}[W={W}]@B={B}",
            "launches": n_launch, "library_ms": None}
     old_ops = None
     if name == "xgcd_coeff_g":
@@ -875,15 +1040,12 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
         limbs = float(iters.long().sum()) * k2_window(m.shape[1])
         ops, old_ops = limbs * OPS_K2, limbs * OPS_K2_OLD
         nbytes = 4.0 * B * (2 * W + m.shape[1])
-    else:
+    elif name == "reduce2_grouped":
         a, b, c, dD_mant, dD_top, red_iters = args
         got = cgp.reduce2_grouped_loop_cuda(a, b, c, dD_mant, dD_top, red_iters, iters=iters)
         plain = cgp.reduce2_grouped_loop_plain(a, b, c, dD_mant, dD_top, red_iters)
         row["max_abs_err"] = max_abs_diff(torch, got, plain)
-        with TailCount() as tc:
-            tail = cg._tail(*got)
-        row["tail_iters"] = tc.n
-        if max_abs_diff(torch, tail, cg._tail(*f2m.grouped_rho_loop(
+        if max_abs_diff(torch, cg._tail(*got), cg._tail(*f2m.grouped_rho_loop(
                 a, b, c, dD_mant, dD_top, red_iters))):
             fail(f"{row['name']}: differs from grouped_rho_loop after the tail")
         fn = lambda: cgp.reduce2_grouped_loop_cuda(a, b, c, dD_mant, dD_top, red_iters)  # noqa: E731
@@ -892,6 +1054,29 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
         limbs = float(iters.long().sum()) * W
         ops, old_ops = limbs * OPS_K3, limbs * OPS_K3_OLD
         nbytes = 4.0 * B * W * 6
+    else:
+        from cofhe_tpu_torch.core.qfi import Form, reduce_form
+        from cofhe_tpu_torch.ops.forms import BForm, bform_to_forms
+
+        a, b, c, max_iters = args
+        got = cgp.reduce_exact_cuda(a, b, c, max_iters, iters=iters)
+        row["max_abs_err"] = max_abs_diff(torch, got, cgp.reduce_exact_plain(
+            a, b, c, max_iters))
+        if int(iters.max()) > max_iters:
+            fail(f"{row['name']}: a lane reached the cap of {max_iters} steps")
+        n = min(B, 256)  # the Python oracle on the values of the first lanes
+        vals = [lb.limbs_to_ints(lb.canonicalize_fast(x[:n].cpu())[1]) for x in (a, c)]
+        sb, bm = lb.canonicalize_fast(b[:n].cpu())
+        want = [reduce_form(Form(x, y, z)) for x, y, z in
+                zip(vals[0], lb.limbs_to_ints(bm, sb), vals[1])]
+        if bform_to_forms(BForm(*(x[:n] for x in got))) != want:
+            fail(f"{row['name']}: differs from the Python oracle's reduced forms")
+        fn = lambda: cgp.reduce_exact_cuda(a, b, c, max_iters)  # noqa: E731
+        plain_ms = timed(torch, lambda: cgp.reduce_exact_plain(a, b, c, max_iters), 1,
+                         warm=False)
+        ops = float(iters.long().sum()) * W * OPS_KT
+        nbytes = 4.0 * B * (6 * W + 2)
+        row["tail_iters"] = int(iters.long().sum())
     if row["max_abs_err"]:
         fail(f"{row['name']}: differs from its plain version")
     ms = timed(torch, fn, TIMING_REPS)
@@ -905,7 +1090,7 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
         f"{bms / ms:.1%} of it)"
         + (f", bound at the earlier per-limb counts {row['bound_old_counts_ms']:.5f} ms "
            f"({row['bound_old_counts_ms'] / ms:.1%} of it)" if old_ops is not None else "")
-        + (f", exact-tail iterations {row['tail_iters']}" if "tail_iters" in row else "")
+        + (f", exact-tail steps in all {row['tail_iters']}" if "tail_iters" in row else "")
         + (f", oracle ok, {row['d_gt_1_lanes']} lanes with d > 1"
            if "d_gt_1_lanes" in row else ""))
     return row
@@ -952,31 +1137,37 @@ class LehmerCount:
 
 def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128):
     """Host wall time and device time of one compose2 at the decrypt
-    ladder's batch (the device's busy share of a host-driven step), the
-    device time split into the three kernels and everything else, and the
-    iterations of the exact tail (forms.reduce_batch) after the rho loop
-    (with the NUCOMP tail, also the Lehmer walk's groups a lane)."""
+    ladder's batch (the device's busy share of a step), its span on the
+    card's clock between CUDA events recorded before and after it, the
+    device time split into the four kernels and everything else, and with
+    the NUCOMP tail the Lehmer walk's groups a lane. A graph replay is
+    profiled as it runs: copies in, one replay, clones out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     base = gmp.nupow_batch([hsm.h] * 16, [rng.getrandbits(1100) for _ in range(16)])
     b1 = bform_from_forms([base[rng.randrange(16)] for _ in range(B)], cg.L, "cuda")
     b2 = bform_from_forms([base[rng.randrange(16)] for _ in range(B)], cg.L, "cuda")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.inference_mode():
         cg.compose2(b1, b2)
         torch.cuda.synchronize()
         t = time.perf_counter()
+        start.record()
         cg.compose2(b1, b2)
+        end.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+        span_ms = start.elapsed_time(end)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             cg.compose2(b1, b2)
             torch.cuda.synchronize()
-        with TailCount() as tail, LehmerCount() as lehmer:
+        with LehmerCount() as lehmer:
             cg.compose2(b1, b2)
     # device-side events only: a CPU op's device time repeats its kernels'
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    split = {"xgcd_coeff_g": 0.0, "mod_topdown": 0.0, "reduce2_grouped": 0.0, "other": 0.0}
+    split = dict.fromkeys(("xgcd_coeff_g", "mod_topdown", "reduce2_grouped",
+                           "reduce_exact", "other"), 0.0)
     for e in device:
         k = next((n for n in split if n + "_kernel" in e.name), "other")
         split[k] += e.self_device_time_total / 1e3
@@ -984,9 +1175,9 @@ def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128):
     busy = f"{dev_ms / wall_ms:.1%} of the wall time" if dev_ms else "not measured"
     groups = (f", Lehmer groups a lane {_stats(lehmer.groups[0])}"
               if lehmer.groups else "")
-    log(f"compose2 B={B} ({label}): wall {wall_ms:.1f} ms, device {dev_ms:.2f} ms "
-        f"({busy}), {len(device)} device kernels and copies, {tail.n} exact-tail "
-        f"iterations{groups}; device ms by kernel "
+    log(f"compose2 B={B} ({label}): wall {wall_ms:.2f} ms, span on the card's clock "
+        f"{span_ms:.2f} ms, device {dev_ms:.2f} ms ({busy}), {len(device)} device "
+        f"kernels and copies{groups}; device ms by kernel "
         + json.dumps({k: round(v, 3) for k, v in split.items()}))
 
 
@@ -1091,11 +1282,21 @@ def main() -> int:
     gmp = hostgmp.GmpClassGroup(hsm.Delta)
     k3 = {B: check_k3(torch, cgp, cg, f2m, gmp, hsm, bform_from_forms,
                       bform_to_forms, rng, B) for B in (KERNEL_B, RAGGED_B, SMALL_B)}
+    kt = {B: check_kt(torch, cgp, cg, gmp, hsm, port, rng, B)
+          for B in (KERNEL_B, RAGGED_B, SMALL_B)}
     log(f"kernel checks: {time.perf_counter() - t:.1f} s")
 
+    from cofhe_tpu_torch.ops import graphs
+    from cofhe_tpu_torch.tools import mesh_check
+
+    global CALLS
+    CALLS = mesh_check.count_calls(cgp, graphs)
     rec = Recorder(torch, cgp)
-    launches, main_path = run_slice(torch, cgp, rec, port.CryptoSystem, port.Tensor,
-                                    hostgmp.GmpEngine, rng)
+    launches, main_by_key, main_path = run_slice(torch, cgp, rec, port.CryptoSystem,
+                                                 port.Tensor, hostgmp.GmpEngine, rng)
+    t = time.perf_counter()
+    compare_decrypt(torch, cgp, port, rec, main_path)
+    log(f"graph against eager decrypt phase: {time.perf_counter() - t:.1f} s")
     # K1 on the decrypt steps' d > 1 lanes, where cg is not unique mod m and
     # only the reference's divstep sequence gives the plain version's cg
     dec_lanes = decrypt_k1_lanes(lb, rec)
@@ -1117,7 +1318,8 @@ def main() -> int:
     by_path["mesh"] = run_mesh(torch, cgp, port, main_path, ops)
     log(f"mesh phase: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    by_path["legacy"], legacy_rec = run_legacy(torch, cgp, port, main_path, rng)
+    by_path["legacy"], legacy_by_key, legacy_rec = run_legacy(torch, cgp, port,
+                                                              main_path, rng)
     log(f"legacy phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -1125,16 +1327,15 @@ def main() -> int:
     with torch.inference_mode():
         for key in sorted(rec.ops, key=lambda k: (k[3], k[0], k[1])):
             table.append(table_row(torch, cgp, f2m, cg, lb, key, rec.ops[key],
-                                   rec.counts[key]))
-        # the legacy path's shapes that the main path has not (K3 at Ln)
+                                   main_by_key.get(key, 0)))
+        # the legacy path's shapes that the main path has not (K3, KT at Ln)
         for key in sorted(k for k in legacy_rec.ops if k not in rec.ops):
             table.append(table_row(torch, cgp, f2m, cg, lb, key, legacy_rec.ops[key],
-                                   legacy_rec.counts[key]))
+                                   legacy_by_key[key]))
     log(f"kernel table: {time.perf_counter() - t:.1f} s, {len(table)} rows")
     for want in TABLE_B:
         if not any(r["name"].endswith(f"@B={want}") for r in table):
             fail(f"no main-path operands were recorded at batch {want}")
-
 
     def entry(name, route_src, replaces, r):
         return {"name": name, "route": "cuda", "source": route_src,
@@ -1150,11 +1351,14 @@ def main() -> int:
            "mod_topdown": ("cofhe_tpu_torch/csrc/mod_topdown.cu",
                            "cofhe_tpu/ops/pallas_group.py:103"),
            "reduce2_grouped": ("cofhe_tpu_torch/csrc/reduce2_grouped.cu",
-                               "cofhe_tpu/ops/forms2.py:233")}
+                               "cofhe_tpu/ops/forms2.py:233"),
+           "reduce_exact": ("cofhe_tpu_torch/csrc/reduce_exact.cu",
+                            "cofhe_tpu/ops/forms.py:207")}
     kernels = [
         entry("xgcd_coeff_g", *src["xgcd_coeff_g"], k1[(88, False, KERNEL_B)]),
         entry("mod_topdown", *src["mod_topdown"], k2[KERNEL_B]),
         entry("reduce2_grouped", *src["reduce2_grouped"], k3[KERNEL_B]),
+        entry("reduce_exact", *src["reduce_exact"], kt[KERNEL_B]),
     ]
     for r in table:
         base_name = r["name"].split("[")[0].split("@")[0]

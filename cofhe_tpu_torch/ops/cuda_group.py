@@ -1,7 +1,7 @@
 """Hopper kernels for the class-group hot loops (counterpart of
 cofhe_tpu/ops/pallas_group.py).
 
-Three kernels, CUDA C++ for sm_90a under cofhe_tpu_torch/csrc/, built with
+Four kernels, CUDA C++ for sm_90a under cofhe_tpu_torch/csrc/, built with
 nvcc into plain-C shared libraries at first use and bound with ctypes. Each
 gives one warp to one batch row; the source notes say more.
 
@@ -24,21 +24,34 @@ gives one warp to one batch row; the source notes say more.
   plain version is ops/forms2.py::grouped_rho_loop_wide, whose limbs it
   matches. Held back by the scalar simulation between groups, which the
   design keeps to products, comparisons and one or two divisions a step.
+* KT `reduce_exact` (csrc/reduce_exact.cu) replaces the XLA while loop of
+  forms.py::reduce_batch, the exact tail after K3: canonicalizes K3's
+  redundant rows and takes each lane to its unique reduced form by rho
+  steps and translations with the kernel's own quotients (up to 40 bits
+  a step, from float64 estimates). Its plain version is
+  `reduce_exact_plain` (canonicalize, then ops/forms.py::reduce_batch);
+  reduced forms are unique, so the two agree bit for bit although their
+  step sequences differ.
 
 The main path runs 97% of K2's and K3's launches at 128-256 lanes, where a
 kernel's time is the latency of one warp's loop rather than the card's
 rate; every kernel runs four lanes a block. The earlier plain versions,
 rl.mod_topdown and forms2.grouped_rho_loop, stay as references.
 
-The dispatchers `xgcd_coeff_g`, `mod_topdown` and `reduce2_grouped_loop` are
-what ops/forms2.py calls: a CPU tensor goes to the plain version, a CUDA
-tensor to the kernel, and anything else raises; there is no fallback from
-the kernel to the plain version. Each `*_cuda` wrapper adds one to
-`LAUNCHES[name]` where it launches its kernel and nowhere else.
+The dispatchers `xgcd_coeff_g`, `mod_topdown`, `reduce2_grouped_loop` and
+`reduce_exact` are what ops/forms2.py calls: a CPU tensor goes to the plain
+version, a CUDA tensor to the kernel, and anything else raises; there is no
+fallback from the kernel to the plain version. Each `*_cuda` wrapper adds
+one to `LAUNCHES[name]` and to `LAUNCHES_BY_KEY[(name, width, nbits or Lm
+or 0, batch)]` where it launches its kernel and nowhere else. While a
+thread captures a CUDA graph (`capturing_launches`, ops/graphs.py) its
+launches are recorded into the graph's key list instead, and each replay
+of the graph counts them (`count_launches`): the kernels run once a replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -49,7 +62,9 @@ import time
 
 import torch
 
+from . import limb as lb
 from . import rl, xgcd2
+from .forms import BForm, reduce_batch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -64,10 +79,15 @@ _ARGTYPES = {
     "xgcd_coeff_g": [_P] * 7 + [_I] * 4 + [_P],
     "mod_topdown": [_P] * 4 + [_I] * 4 + [_P],
     "reduce2_grouped": [_P] * 7 + [_I] * 4 + [_D, _P],
+    "reduce_exact": [_P] * 8 + [_I] * 3 + [_P],
 }
 KERNELS = tuple(_ARGTYPES)
 
 LAUNCHES = {name: 0 for name in KERNELS}
+# launches by (kernel, width, nbits or Lm or 0, batch)
+LAUNCHES_BY_KEY: dict = {}
+# the key list of the graph this thread is capturing, if any
+_CAPTURE = threading.local()
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -77,6 +97,26 @@ BUILD_INFO: dict = {"seconds": None, "log": ""}
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_KEY.clear()
+
+
+def count_launches(keys) -> None:
+    """Count one launch for each (name, width, extra, batch) key."""
+    for key in keys:
+        LAUNCHES[key[0]] += 1
+        LAUNCHES_BY_KEY[key] = LAUNCHES_BY_KEY.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def capturing_launches(keys: list):
+    """Inside, this thread's launches are appended to `keys` (the graph
+    being captured: the kernels are recorded, not run) and not counted."""
+    prev = getattr(_CAPTURE, "keys", None)
+    _CAPTURE.keys = keys
+    try:
+        yield keys
+    finally:
+        _CAPTURE.keys = prev
 
 
 def _nvcc() -> str:
@@ -165,13 +205,21 @@ def _iters_ptr(iters, B: int, ref: torch.Tensor):
     return iters.data_ptr()
 
 
-def _launch(name: str, ref: torch.Tensor, *args) -> None:
+def _launch(key: tuple, ref: torch.Tensor, *args) -> None:
+    """Launch kernel key[0] on the current stream of ref's device; count it
+    under `key` = (name, width, nbits or Lm or 0, batch), or record it in
+    the graph this thread is capturing."""
+    name = key[0]
     fn = build()[name]
     with torch.cuda.device(ref.device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    keys = getattr(_CAPTURE, "keys", None)
+    if keys is not None:
+        keys.append(key)
+    else:
+        count_launches((key,))
 
 
 # ---------------------------------------------------------------- K1: xgcd
@@ -193,8 +241,8 @@ def xgcd_coeff_g_cuda(f_mag, g_mag, m_mag, nbits: int, need_u: bool = False,
     cg = torch.empty_like(f_mag)
     cu = torch.empty_like(f_mag) if need_u else None
     groups = xgcd2.groups_for_bits(nbits)
-    _launch("xgcd_coeff_g", f_mag, f_mag.data_ptr(), g_mag.data_ptr(),
-            m_mag.data_ptr(), d.data_ptr(), cg.data_ptr(),
+    _launch(("xgcd_coeff_g", W, int(nbits), B), f_mag, f_mag.data_ptr(),
+            g_mag.data_ptr(), m_mag.data_ptr(), d.data_ptr(), cg.data_ptr(),
             cu.data_ptr() if need_u else None, _iters_ptr(iters, B, f_mag),
             B, W, groups, int(need_u))
     return (d, cg, cu) if need_u else (d, cg)
@@ -227,8 +275,8 @@ def mod_topdown_cuda(x, m_mag, max_iters: int, iters=None):
         raise ValueError(f"mod_topdown: need 1 <= Lm < Lx <= {MAX_LIMBS} and "
                          f"Lm <= {MAX_LIMBS - 3}, got Lm={Lm}, Lx={L}")
     out = torch.empty_like(x)
-    _launch("mod_topdown", x, x.data_ptr(), m_mag.data_ptr(), out.data_ptr(),
-            _iters_ptr(iters, B, x), B, L, Lm, int(max_iters))
+    _launch(("mod_topdown", L, Lm, B), x, x.data_ptr(), m_mag.data_ptr(),
+            out.data_ptr(), _iters_ptr(iters, B, x), B, L, Lm, int(max_iters))
     return out
 
 
@@ -262,8 +310,8 @@ def reduce2_grouped_loop_cuda(a, b, c, dD_mant: float, dD_top: int,
     if not 1 <= L <= MAX_LIMBS:
         raise ValueError(f"reduce2_grouped: width {L} outside [1, {MAX_LIMBS}]")
     ao, bo, co = torch.empty_like(a), torch.empty_like(b), torch.empty_like(c)
-    _launch("reduce2_grouped", a, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            ao.data_ptr(), bo.data_ptr(), co.data_ptr(),
+    _launch(("reduce2_grouped", L, 0, B), a, a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), ao.data_ptr(), bo.data_ptr(), co.data_ptr(),
             _iters_ptr(iters, B, a), B, L, int(dD_top), int(red_iters),
             float(dD_mant))
     return ao, bo, co
@@ -275,3 +323,43 @@ def reduce2_grouped_loop(a, b, c, dD_mant: float, dD_top: int,
     if a.device.type == "cpu":
         return reduce2_grouped_loop_plain(a, b, c, dD_mant, dD_top, red_iters)
     return reduce2_grouped_loop_cuda(a, b, c, dD_mant, dD_top, red_iters)
+
+
+# ------------------------------------------------------ KT: the exact tail
+
+
+def reduce_exact_plain(a, b, c, max_iters: int) -> BForm:
+    """Canonicalize redundant (a, b, c) (a, c positive, b signed) and
+    reduce them exactly with forms.reduce_batch (at most max_iters masked
+    iterations, one host test each)."""
+    _, am = lb.canonicalize_fast(a)
+    sb, bm = lb.canonicalize_fast(b)
+    _, cm = lb.canonicalize_fast(c)
+    return reduce_batch(BForm(am, sb, bm, cm), max_iters)
+
+
+def reduce_exact_cuda(a, b, c, max_iters: int, iters=None) -> BForm:
+    """KT on the card: the unique reduced form of each row of redundant
+    (a, b, c), as a canonical BForm of the inputs' width, as
+    reduce_exact_plain gives it. `iters`, if given, receives each row's
+    number of steps (max_iters + 1 for a row still unreduced at the cap,
+    which only this output reports: reading it would be a host sync)."""
+    _check("reduce_exact", a, b, c)
+    B, L = a.shape
+    if b.shape != (B, L) or c.shape != (B, L):
+        raise ValueError("reduce_exact: a, b and c must share one shape")
+    if not 1 <= L <= MAX_LIMBS:
+        raise ValueError(f"reduce_exact: width {L} outside [1, {MAX_LIMBS}]")
+    ao, bo, co = torch.empty_like(a), torch.empty_like(b), torch.empty_like(c)
+    bs = torch.empty(B, dtype=torch.int32, device=a.device)
+    _launch(("reduce_exact", L, 0, B), a, a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), ao.data_ptr(), bs.data_ptr(), bo.data_ptr(),
+            co.data_ptr(), _iters_ptr(iters, B, a), B, L, int(max_iters))
+    return BForm(ao, bs, bo, co)
+
+
+def reduce_exact(a, b, c, max_iters: int) -> BForm:
+    """Dispatcher: plain version for CPU tensors, KT for CUDA tensors."""
+    if a.device.type == "cpu":
+        return reduce_exact_plain(a, b, c, max_iters)
+    return reduce_exact_cuda(a, b, c, max_iters)

@@ -93,7 +93,8 @@ class TorchEngine:
     # one batched compose on the device
     min_batch_encrypt = 64
 
-    def __init__(self, hsm2k: CLHSM2k, device="cuda", mesh=None):
+    def __init__(self, hsm2k: CLHSM2k, device="cuda", mesh=None,
+                 graphs: bool = True):
         self.hsm = hsm2k
         self.device = resolve_device(device)
         self.mesh = mesh
@@ -111,7 +112,7 @@ class TorchEngine:
             return tuple(x[i].numpy() for x in h)
 
         self.cg = CG.from_arrays(disc_bits, delta4, row(0), row(1),
-                                 self.device)
+                                 self.device, graphs=graphs)
         self._identity_form = hsm2k.identity
 
     def _forms_to_bform(self, forms, batch: int, rows=None) -> BForm:

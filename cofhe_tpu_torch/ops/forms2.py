@@ -14,17 +14,25 @@ The algebra and the widths are the JAX package's:
   xi = (g - eta0*|s|) / d1;
 * mu = [u*(b2-b1) - 2*w*c1] mod 2*m2 with one top-down reduction;
 * reduction: estimate-driven rho-descent (grouped or per-quotient) and the
-  exact tail `forms.reduce_batch`; or, opt-in as in the JAX package
+  exact tail (`cuda_group.reduce_exact`: KT, or `forms.reduce_batch` on
+  the CPU); or, opt-in as in the JAX package
   (`COFHE_NUCOMP=1` or `CG(..., use_nucomp=True)`), the NUCOMP tail: a
   Lehmer walk down the continued fraction of mu / 2m2 (`rl.lehmer_euclid`)
   and the nearly reduced form built from its cofactors, which the
   rho-descent then finishes at width Ln.
 
-Every `xgcd_coeff_g`, `mod_topdown` and grouped-rho loop goes through the
-dispatchers of ops/cuda_group.py: on a CUDA tensor they launch the Hopper
-kernels, on a CPU tensor they run the plain torch versions. Reduced forms
-are unique, so the outputs equal the JAX package's and the pure-Python
-oracle's bit for bit.
+Every `xgcd_coeff_g`, `mod_topdown`, grouped-rho loop and exact tail goes
+through the dispatchers of ops/cuda_group.py: on a CUDA tensor they launch
+the Hopper kernels (K1, K2, K3, KT), on a CPU tensor they run the plain
+torch versions. Reduced forms are unique, so the outputs equal the JAX
+package's and the pure-Python oracle's bit for bit.
+
+On a CUDA device, `CG.compose2` with the grouped reduction and no NUCOMP
+replays one captured CUDA graph per batch size (ops/graphs.py), the
+counterpart of the JAX engine's jitted steps: that compose2 reads no
+value on the host, so the whole step is one device program.
+`CG(..., graphs=False)` runs it eagerly instead; NUCOMP, `grouped=False`
+and the v1 code stay eager.
 
 The rho loops in torch ops test their exit condition on the host every
 `SYNC_EVERY` iterations; their bodies are fixed points on finished lanes,
@@ -41,7 +49,8 @@ from . import cuda_group
 from . import limb as lb
 from . import rl
 from .forms import BForm, bform_broadcast, bform_from_numpy, bform_select, \
-    reduce_batch, rotate_to_odd
+    rotate_to_odd
+from .graphs import ComposeGraphs
 
 I32 = torch.int32
 F32 = torch.float32
@@ -312,13 +321,18 @@ class CG:
     """Per-discriminant kernel family on one torch device: the widths, the
     constant |Delta|/4 and the two substitute forms h, h^2 of the identity
     fast path. `use_nucomp` selects the NUCOMP tail; None reads the JAX
-    package's switch COFHE_NUCOMP (=1 on) at construction."""
+    package's switch COFHE_NUCOMP (=1 on) at construction. `graphs`
+    (default on) lets compose2 on a CUDA device replay a captured graph a
+    batch size (ops/graphs.py); off, it runs eagerly."""
 
     def __init__(self, disc_bits: int, delta4: torch.Tensor, h: BForm,
-                 h2: BForm, use_nucomp: bool | None = None):
+                 h2: BForm, use_nucomp: bool | None = None,
+                 graphs: bool = True):
         if use_nucomp is None:
             use_nucomp = os.environ.get("COFHE_NUCOMP", "0") == "1"
         self.use_nucomp = use_nucomp
+        self.graphs = graphs
+        self.compose_graphs = ComposeGraphs(self)
         self.device = delta4.device
         self.disc_bits = disc_bits
         L, Lh = CGCtx.widths_for_disc_bits(disc_bits)
@@ -350,12 +364,14 @@ class CG:
 
     @classmethod
     def from_arrays(cls, disc_bits: int, delta4, h_rows, h2_rows,
-                    device, use_nucomp: bool | None = None) -> "CG":
+                    device, use_nucomp: bool | None = None,
+                    graphs: bool = True) -> "CG":
         """CG from the numpy arrays a JAX `CG` holds: `delta4` (2L,) and
         the rows (a, b_sign, b, c) of h and h^2."""
         d4 = torch.as_tensor(delta4).to(device=device, dtype=I32)
         return cls(disc_bits, d4, bform_from_numpy(*h_rows, device),
-                   bform_from_numpy(*h2_rows, device), use_nucomp=use_nucomp)
+                   bform_from_numpy(*h2_rows, device), use_nucomp=use_nucomp,
+                   graphs=graphs)
 
     # ------------------------------------------------------------ helpers
     @staticmethod
@@ -371,11 +387,15 @@ class CG:
             return self.reduce2_grouped(a_red, b_red, c_red)
         return self.reduce2_iter(a_red, b_red, c_red)
 
+    @property
+    def tail_iters(self) -> int:
+        """The exact tail's iteration cap (the JAX package's)."""
+        return self.disc_bits // 4 + 64
+
     def _tail(self, a, b, c) -> BForm:
-        _, am = lb.canonicalize_fast(a)
-        sb, bm = lb.canonicalize_fast(b)
-        _, cm = lb.canonicalize_fast(c)
-        return reduce_batch(BForm(am, sb, bm, cm), self.disc_bits // 4 + 64)
+        """The exact tail: the unique reduced form of redundant (a, b, c)
+        (KT on the card)."""
+        return cuda_group.reduce_exact(a, b, c, self.tail_iters)
 
     def reduce2_grouped(self, a_red, b_red, c_red) -> BForm:
         """Grouped rho-descent (`grouped_rho_loop_wide`, K3 on the card), then
@@ -426,6 +446,14 @@ class CG:
 
     # ------------------------------------------------------------ compose
     def compose2(self, F1: BForm, F2: BForm, grouped: bool = True) -> BForm:
+        """F1 * F2 reduced. On a CUDA device with `graphs`, `grouped` and no
+        NUCOMP, a replay of this batch size's captured graph; otherwise
+        eager."""
+        if self.graphs and grouped and not self.use_nucomp and F1.a.is_cuda:
+            return self.compose_graphs.run(F1, F2)
+        return self.compose2_eager(F1, F2, grouped)
+
+    def compose2_eager(self, F1: BForm, F2: BForm, grouped: bool = True) -> BForm:
         (a3, b3s, b3m, c3, a1g, m2x2, mu,
          id1, id2) = self.compose2_unreduced(F1, F2)
         if self.use_nucomp:
@@ -452,7 +480,7 @@ class CG:
         """Everything before the reduction: the unreduced composed
         coefficients (a3, b3s, b3m, c3), the NUCOMP tail's operands
         (a1g, m2x2, mu) and the identity masks (id1, id2), in the JAX
-        function's order."""
+        function's order. It reads no value on the host."""
         L, Lh = self.L, self.Lh
         B = F1.a.shape[0]
 
@@ -515,8 +543,9 @@ class CG:
         # applies to eta8
         eta0_8 = self._redc_mod(eta8, d1_8, fits8, inv8)
 
-        # ... and the same pipeline at width Lh on the rare rest (its loops
-        # do no work when no lane needs it)
+        # ... and the same pipeline at width Lh on the rare rest (its xgcd
+        # leaves its loop at once when no lane needs it; its REDCs run on
+        # every lane, and the selects below drop the lanes outside `rare`)
         rare = ~fits8 & ~some_id
         d1h = torch.where(rare[..., None], lb.resize(d1, Lh),
                           lb.resize(one8, Lh))

@@ -457,10 +457,8 @@ def redc_pow16(x, d_mag, steps: int, active=None, inv=None):
     package's limb-by-limb REDC modulo d (both land in [0, 2d) for the
     x < 2^(16*steps) the compose passes), in ~1/100 of its eager ops.
     `inv`, when the caller already has it, is d^-1 mod 2^(16*steps). Lanes
-    outside `active` return garbage; when no lane is active the result is
-    carry_pass(x)."""
-    if active is not None and not bool(active.any()):
-        return carry_pass(x)
+    outside `active` return garbage. The reduction runs on every lane and
+    reads no value on the host, so a CUDA graph can capture it."""
     Lx = x.shape[-1]
     Ld = d_mag.shape[-1]
     _, xm = lb.canonicalize_fast(x)

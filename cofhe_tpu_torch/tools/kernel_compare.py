@@ -3,9 +3,10 @@ directory, on the operands the main path really passes, on one CUDA card.
 
     python3 -m cofhe_tpu_torch.tools.kernel_compare --baseline-csrc DIR
 
-DIR holds the earlier sources of the three kernels (and warp_limbs.cuh)
-with this checkout's C entry points (cuda_group._ARGTYPES); for example an
-unpacked `git archive <commit> cofhe_tpu_torch/csrc`. The earlier K1 is
+DIR holds the earlier sources of the kernels (and warp_limbs.cuh) with
+this checkout's C entry points (cuda_group._ARGTYPES); for example an
+unpacked `git archive <commit> cofhe_tpu_torch/csrc`. A kernel whose
+source DIR lacks (KT before it existed) is compared with nothing. The earlier K1 is
 the 13-divstep kernel: it gets its loop cap in 13-step groups (a cap that
 also covers any kernel of longer groups, whose loop ends once g is zero),
 and its trips count 13 divsteps a group. Where an earlier kernel is the
@@ -13,18 +14,19 @@ same source as this checkout's, its pair of times shows the spread of the
 measurement. From the root of a checkout, the script:
 
 1. builds this checkout's kernels and the earlier ones side by side;
-2. drives chip_smoke's main path once (its checks included), recording
-   the operands of one decrypt, chain and ladder compose2;
+2. drives chip_smoke's main path once (its checks included) and its graph
+   against eager decrypt, recording the operands of one decrypt, chain
+   and ladder compose2;
 3. runs the main path's matmul twice more in the same process on the same
-   inputs and Enc(0), with this checkout's kernels and with the earlier
-   ones: seconds, exact-tail iterations, and whether the outputs equal the
-   main run's;
-4. on each recorded operand, checks that both kernels agree (K1 and K2
-   bit for bit, K3 after the exact tail) and times them in turns
+   inputs and Enc(0), eagerly (a captured graph would keep this
+   checkout's kernels), with this checkout's kernels and with the earlier
+   ones: seconds, and whether the outputs equal the main run's;
+4. on each recorded operand, checks that both kernels agree (K1, K2 and
+   KT bit for bit, K3 after the exact tail) and times them in turns
    (earlier, this, this, earlier), with each one's trips and bound (the
-   earlier K1's at its 13-divstep per-limb count, K2 and K3 at this
+   earlier K1's at its 13-divstep per-limb count, K2, K3 and KT at this
    checkout's counts);
-5. profiles one compose2 at 128 lanes with each set of kernels.
+5. profiles one eager compose2 at 128 lanes with each set of kernels.
 
 Any disagreement raises. chip_smoke.py stays the check the port must pass;
 this script only measures.
@@ -55,10 +57,12 @@ class Baseline:
     def __init__(self, csrc: str, cgp, fail):
         self.csrc, self.cgp, self.fail, self.fns, self.procs = csrc, cgp, fail, {}, {}
         self.out_dir = os.path.join(cgp.BUILD_DIR, "baseline")
+        self.kernels = [n for n in cgp.KERNELS
+                        if os.path.exists(os.path.join(csrc, f"{n}.cu"))]
 
     def start(self) -> None:
         os.makedirs(self.out_dir, exist_ok=True)
-        for name in self.cgp.KERNELS:
+        for name in self.kernels:
             out = os.path.join(self.out_dir, f"lib{name}.so")
             cmd = [self.cgp._nvcc(), *self.cgp.NVCC_FLAGS, "-o", out,
                    os.path.join(self.csrc, f"{name}.cu")]
@@ -108,17 +112,27 @@ class Baseline:
                    int(red_iters), float(dD_mant))
         return ao, bo, co
 
+    def reduce_exact(self, torch, a, b, c, max_iters, iters=None):
+        ao, bo, co = torch.empty_like(a), torch.empty_like(b), torch.empty_like(c)
+        bs = torch.empty(a.shape[0], dtype=torch.int32, device=a.device)
+        self._call(torch, "reduce_exact", a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                   ao.data_ptr(), bs.data_ptr(), bo.data_ptr(), co.data_ptr(),
+                   self._ptr(iters), a.shape[0], a.shape[1], int(max_iters))
+        return self.cgp.BForm(ao, bs, bo, co)
+
 
 # cuda_group's wrapper for each kernel
 WRAPPER = {"xgcd_coeff_g": "xgcd_coeff_g_cuda", "mod_topdown": "mod_topdown_cuda",
-           "reduce2_grouped": "reduce2_grouped_loop_cuda"}
+           "reduce2_grouped": "reduce2_grouped_loop_cuda",
+           "reduce_exact": "reduce_exact_cuda"}
 
 
 @contextlib.contextmanager
 def baseline_in_place(torch, cgp, base):
-    """cuda_group's kernel wrappers replaced by the baseline's."""
-    saved = {n: getattr(cgp, WRAPPER[n]) for n in cgp.KERNELS}
-    for n in cgp.KERNELS:
+    """cuda_group's kernel wrappers replaced by the baseline's (those it
+    has)."""
+    saved = {n: getattr(cgp, WRAPPER[n]) for n in base.kernels}
+    for n in base.kernels:
         setattr(cgp, WRAPPER[n], lambda *a, _n=n, **k: getattr(base, _n)(torch, *a, **k))
     try:
         yield
@@ -127,37 +141,40 @@ def baseline_in_place(torch, cgp, base):
             setattr(cgp, WRAPPER[n], fn)
 
 
-def matmul_again(torch, smoke, cgp, base, slice_args) -> None:
+def matmul_again(torch, smoke, cgp, base, main) -> None:
     """The main path's matmul once more with this checkout's kernels and
     once with the baseline's, on the same inputs and Enc(0)."""
     from cofhe_tpu_torch.core.qfi import is_reduced, reduce_form
 
-    cs, pk, pt, ct, res, rand_at_matmul = slice_args
-    for label in ("this checkout's kernels", "the baseline kernels"):
-        cs.rand_gen = copy.deepcopy(rand_at_matmul)  # the same Enc(0)
-        swap = baseline_in_place(torch, cgp, base) if label.startswith("the baseline") \
-            else contextlib.nullcontext()
-        with swap:
-            t = time.perf_counter()
-            with smoke.TailCount() as tail:
+    cs, pk, pt, ct, res = (main[k] for k in ("cs", "pk", "pt", "ct", "res"))
+    cg, graphs = cs._engine.cg, cs._engine.cg.graphs
+    cg.graphs = False  # the reruns are eager (the baseline has no graphs)
+    try:
+        for label in ("this checkout's kernels", "the baseline kernels"):
+            cs.rand_gen = copy.deepcopy(main["rand_at_matmul"])  # the same Enc(0)
+            swap = baseline_in_place(torch, cgp, base) if label.startswith("the baseline") \
+                else contextlib.nullcontext()
+            with swap:
+                t = time.perf_counter()
                 again = cs.scal_ciphertext_tensors(pk, pt, ct)
                 torch.cuda.synchronize()
-            secs = time.perf_counter() - t
-        differ, unreduced, other_class = [], 0, 0
-        for i, (x, y) in enumerate(zip(again.data, res.data)):
-            for fx, fy in zip(x, y):
-                if fx != fy:
-                    differ.append(i)
-                    unreduced += not is_reduced(fx)
-                    other_class += reduce_form(fx) != fy
-        smoke.log(f"matmul again with {label}: {secs:.3f} s, {tail.n} exact-tail "
-                  f"iterations, phases " + json.dumps(
-                      {k: round(v, 3) for k, v in cs._engine.last_matmul_phases.items()})
-                  + f"; {len(differ)} of {2 * len(res.data)} output forms differ from "
-                  f"the main run's, {unreduced} of them not reduced, {other_class} "
-                  f"of another class")
-        if differ:
-            smoke.fail(f"the matmul again with {label} gave other ciphertexts")
+                secs = time.perf_counter() - t
+            differ, unreduced, other_class = [], 0, 0
+            for i, (x, y) in enumerate(zip(again.data, res.data)):
+                for fx, fy in zip(x, y):
+                    if fx != fy:
+                        differ.append(i)
+                        unreduced += not is_reduced(fx)
+                        other_class += reduce_form(fx) != fy
+            smoke.log(f"matmul again (eager) with {label}: {secs:.3f} s, phases " + json.dumps(
+                          {k: round(v, 3) for k, v in cs._engine.last_matmul_phases.items()})
+                      + f"; {len(differ)} of {2 * len(res.data)} output forms differ from "
+                      f"the main run's, {unreduced} of them not reduced, {other_class} "
+                      f"of another class")
+            if differ:
+                smoke.fail(f"the matmul again with {label} gave other ciphertexts")
+    finally:
+        cg.graphs = graphs
 
 
 def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
@@ -165,6 +182,9 @@ def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
     agreement, trips, times in turns and bounds (each over its own trips
     and limbs)."""
     name, W, _, B = key
+    if name not in base.kernels:
+        smoke.log(f"compare {name}[W={W}]@B={B}: the baseline has no such kernel")
+        return
     dev = args[0].device
     it_new = torch.zeros(B, dtype=torch.int32, device=dev)
     it_old = torch.zeros_like(it_new)
@@ -195,16 +215,16 @@ def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
         new_ops, old_ops = float(it_new.long().sum()) * window, float(it_old.long().sum()) * window
         nbytes = 4.0 * B * (2 * W + m.shape[1])
         trips_new, trips_old = smoke._stats(it_new), smoke._stats(it_old)
-    else:
+    elif name == "reduce2_grouped":
         a, b, c, dD_mant, dD_top, red_iters = args
         got = cgp.reduce2_grouped_loop_cuda(a, b, c, dD_mant, dD_top, red_iters,
                                             iters=it_new)
         old = base.reduce2_grouped(torch, a, b, c, dD_mant, dD_top, red_iters,
                                    iters=it_old)
-        with smoke.TailCount() as t_new:
-            tail_new = cg._tail(*got)
-        with smoke.TailCount() as t_old:
-            tail_old = cg._tail(*old)
+        t_new = torch.zeros_like(it_new)
+        t_old = torch.zeros_like(it_new)
+        tail_new = cgp.reduce_exact_cuda(*got, cg.tail_iters, iters=t_new)
+        tail_old = cgp.reduce_exact_cuda(*old, cg.tail_iters, iters=t_old)
         if smoke.max_abs_diff(torch, tail_old, tail_new):
             smoke.fail(f"{name}@B={B}: the baseline kernel disagrees after the tail")
         new_fn = lambda: cgp.reduce2_grouped_loop_cuda(  # noqa: E731
@@ -215,7 +235,20 @@ def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
         old_ops = float(it_old.long().sum()) * W * smoke.OPS_K3
         nbytes = 4.0 * B * W * 6
         trips_new, trips_old = smoke._stats(it_new), smoke._stats(it_old)
-        tails = f", exact-tail iterations {t_new.n} (baseline {t_old.n})"
+        tails = (f", exact-tail steps {int(t_new.long().sum())} (baseline "
+                 f"{int(t_old.long().sum())})")
+    else:
+        a, b, c, max_iters = args
+        got = cgp.reduce_exact_cuda(a, b, c, max_iters, iters=it_new)
+        old = base.reduce_exact(torch, a, b, c, max_iters, iters=it_old)
+        if smoke.max_abs_diff(torch, old, got):
+            smoke.fail(f"{name}@B={B}: the baseline kernel disagrees")
+        new_fn = lambda: cgp.reduce_exact_cuda(a, b, c, max_iters)  # noqa: E731
+        old_fn = lambda: base.reduce_exact(torch, a, b, c, max_iters)  # noqa: E731
+        new_ops = float(it_new.long().sum()) * W * smoke.OPS_KT
+        old_ops = float(it_old.long().sum()) * W * smoke.OPS_KT
+        nbytes = 4.0 * B * (6 * W + 2)
+        trips_new, trips_old = smoke._stats(it_new), smoke._stats(it_old)
     # a first timing warms the card and sizes each turn to >= 20 ms of calls
     reps = max(smoke.TIMING_REPS, int(20.0 / smoke.timed(torch, new_fn, 3)))
     t = {"new": [], "old": []}
@@ -264,17 +297,19 @@ def main() -> int:
     cg = port.TorchEngine(hsm, "cuda").cg
     gmp = port.hostgmp.GmpClassGroup(hsm.Delta)
     rec = smoke.Recorder(torch, cgp)
-    _, slice_args = smoke.run_slice(torch, cgp, rec, port.CryptoSystem, port.Tensor,
-                                    port.hostgmp.GmpEngine, rng)
-    matmul_again(torch, smoke, cgp, base, slice_args)
+    _, _, main_path = smoke.run_slice(torch, cgp, rec, port.CryptoSystem, port.Tensor,
+                                      port.hostgmp.GmpEngine, rng)
+    smoke.compare_decrypt(torch, cgp, port, rec, main_path)
+    matmul_again(torch, smoke, cgp, base, main_path)
     with torch.inference_mode():
         for key in sorted(rec.ops, key=lambda k: (k[3], k[0], k[1])):
             compare_row(torch, smoke, cgp, cg, base, key, rec.ops[key])
-    smoke.profile_compose(torch, cg, gmp, hsm, port.bform_from_forms, rng,
-                          "this checkout's kernels")
+    ecg = port.TorchEngine(hsm, "cuda", graphs=False).cg
+    smoke.profile_compose(torch, ecg, gmp, hsm, port.bform_from_forms, rng,
+                          "this checkout's kernels, eager")
     with baseline_in_place(torch, cgp, base):
-        smoke.profile_compose(torch, cg, gmp, hsm, port.bform_from_forms, rng,
-                              "baseline kernels")
+        smoke.profile_compose(torch, ecg, gmp, hsm, port.bform_from_forms, rng,
+                              "baseline kernels, eager")
     smoke.log(smi)
     return 0
 

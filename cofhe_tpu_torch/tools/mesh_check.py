@@ -19,11 +19,12 @@ the same inputs, whichever of these the input file holds:
 The input file is a pickle of plain integers (`write_inputs`): forms are
 (a, b, c) tuples and ciphertexts pairs of forms, so that any package can
 write it; it may hold the results expected of each op. The output file
-holds the rank's results in the same encoding, the kernel calls it made by
-(kernel, batch), its kernel launches on a card, its gathers and its
-seconds. `launch` starts all ranks as subprocesses, each with a time limit,
-kills them all as soon as one fails and raises with that rank's log;
-`check_outputs` holds the ranks to each other and to the expected results.
+holds the rank's results in the same encoding, the kernels it ran by
+(kernel, batch) as `count_calls` counts them (graph replays included),
+its kernel launches on a card, its gathers and its seconds. `launch`
+starts all ranks as subprocesses, each with a time limit, kills them all
+as soon as one fails and raises with that rank's log; `check_outputs`
+holds the ranks to each other and to the expected results.
 The tests and chip_smoke.py drive the ranks through them, and `--launch W`
 does from the command line (exit 1 on any difference). `--make-inputs`
 writes a seeded input file at chip_smoke.py's configuration with its
@@ -41,13 +42,15 @@ import pickle
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 OPS = ("add", "matmul", "combine")
 # the kernel dispatchers of ops/cuda_group.py, by kernel name
 DISPATCHERS = {"xgcd_coeff_g": "xgcd_coeff_g", "mod_topdown": "mod_topdown",
-               "reduce2_grouped": "reduce2_grouped_loop"}
+               "reduce2_grouped": "reduce2_grouped_loop",
+               "reduce_exact": "reduce_exact"}
 
 
 class MeshCheckError(RuntimeError):
@@ -116,17 +119,37 @@ def make_inputs(path: str) -> None:
                      "add": gmp.add_batch(cts1, cts2), "combine": ctv[:16]})
 
 
-def _count_calls(cuda_group) -> dict:
-    """Count the kernel dispatchers' calls by 'kernel@batch' (one launch
-    each on a card)."""
+def count_calls(cuda_group, graphs) -> dict:
+    """Count the kernels run by 'kernel@batch', apart from cuda_group's own
+    counters: each call of a dispatcher outside a graph capture (one launch
+    on a card, the plain version on the CPU) and, for each replay of a
+    compose2 graph, each kernel it captured. On a card the counts must
+    equal cuda_group.LAUNCHES; `.clear()` the dict to start over."""
+    import torch
+
     calls: dict = {}
+    lock = threading.Lock()
+
+    def add(key: str) -> None:
+        with lock:
+            calls[key] = calls.get(key, 0) + 1
+
     for name, attr in DISPATCHERS.items():
         def counted(*a, _orig=getattr(cuda_group, attr), _name=name, **kw):
-            key = f"{_name}@{a[0].shape[0]}"
-            calls[key] = calls.get(key, 0) + 1
+            if not (a[0].is_cuda and torch.cuda.is_current_stream_capturing()):
+                add(f"{_name}@{a[0].shape[0]}")
             return _orig(*a, **kw)
 
         setattr(cuda_group, attr, counted)
+    replay = graphs.ComposeGraph.run
+
+    def replayed(g, F1, F2):
+        out = replay(g, F1, F2)
+        for name, _, _, batch in g.keys:
+            add(f"{name}@{batch}")
+        return out
+
+    graphs.ComposeGraph.run = replayed
     return calls
 
 
@@ -136,7 +159,7 @@ def run_rank(args) -> dict:
     torch.set_num_threads(1)
     from ..core.cl_hsm2k import CipherText, CLHSM2k
     from ..core.qfi import Form
-    from ..ops import cuda_group
+    from ..ops import cuda_group, graphs
     from ..ops.engine import TorchEngine
     from ..parallel import distributed, sharded
     from ..tensor import Tensor
@@ -155,7 +178,7 @@ def run_rank(args) -> dict:
         mesh = sharded.make_mesh(dp=args.dp, tp=args.tp)
         hsm = CLHSM2k(data["sec"], data["k"], p=data["p"])
         eng = TorchEngine(hsm, args.device, mesh=mesh)
-    calls = _count_calls(cuda_group)
+    calls = count_calls(cuda_group, graphs)
     cuda_group.reset_launches()
     sharded.GATHERS.update(calls=0, bytes=0)
     out = {"rank": args.rank, "coord": eng._coord, "mesh": (mesh.dp, mesh.tp)}
