@@ -3,11 +3,16 @@
 
     python3 chip_smoke.py       # from the root of a checkout
 
-1. Builds the four Hopper kernels from cofhe_tpu_torch/csrc with nvcc and
-   holds each one against its plain torch version on the card, at the
-   shapes the main path gives it and at 128, 1001 and 16384 lanes
-   (bit-exact, and against Python integers and GMP), timing both; K2 also
-   on the edge cases of its wide digit. KT, the exact tail, runs on K3's
+1. Builds the seven Hopper kernels from cofhe_tpu_torch/csrc with nvcc
+   (one nvcc a source, all started together) and holds each one against
+   its plain torch version on the card, at the shapes the main path gives
+   it and at 128, 1001 and 16384 lanes (bit-exact, and against Python
+   integers and GMP), timing both; K2 also on the edge cases of its wide
+   digit. K5m (products), K5d (exact quotients) and K4 (REDC into [0, d))
+   at every shape of compose2, with edge cases at 128 lanes (zero and
+   all-0xFFFF operands, y = 1, y of one limb, quotients that fill L_out,
+   d = 1, d of one limb, inactive lanes, x with its top limb set) and K5m
+   at widths 1 to 288 with L_out below, at and above La + Lb. KT, the exact tail, runs on K3's
    outputs of real compose2 operands (self-composes, inverse pairs and
    powers of f, which drop deep into the tail), must give GMP's composes,
    and on edge cases (b = -a, a = c with b < 0, a > c, reduced forms, and
@@ -21,12 +26,12 @@
    backend's for the same inputs and Enc(0). Each compose2 on the card is
    a replay of the CG's CUDA graph for its batch (ops/graphs.py), captured
    at first use after one eager warm-up; the launch counters count each
-   replay's captured kernels, by (kernel, width, nbits or Lm, batch). Each
+   replay's captured kernels, by (kernel, width, extra, batch). Each
    graph's warm-up and capture seconds and its memory pool are printed.
    The main path's 128 ciphertexts are then decrypted once more by graph
    replays and once by an eager engine (graphs=False): the c1^sk forms and
-   the plaintexts must be bit-identical, and the K1, K2, K3 and KT launch
-   counts equal; both wall times are printed. Operands are recorded from
+   the plaintexts must be bit-identical, and the launch counts of all
+   seven kernels equal; both wall times are printed. Operands are recorded from
    the eager calls (a replay calls no wrapper): one decrypt compose2 (128
    lanes) from the eager decrypt, one chain (256) and one ladder (16384)
    compose2 from the graphs' warm-ups. K1 is then checked again, with and
@@ -71,7 +76,8 @@
    the Bezout identity mod m. One compose2 on the same 128 forms is
    profiled three ways: eager, as a graph replay, and with the NUCOMP
    tail: wall and device time (the device's busy share), device time
-   split by kernel, device kernels and copies, and Lehmer groups.
+   split by kernel (the seven, and "other": what is left in torch ops),
+   device kernels and copies, and Lehmer groups.
    Each path (main, engine ops, network, mesh, legacy) is driven with the
    launch counts set to 0 just before it and read just after (on the mesh:
    each rank's, summed); every kernel must launch in each, and the counts
@@ -84,7 +90,9 @@
    trip counts (K1 in groups and in divsteps, KT in steps: its exact-tail
    iterations), time and bound (also at the earlier kernels' per-limb
    operation counts: the 13-divstep K1, the 24-bit-digit K2, the
-   2^12-budget K3), and K3 and KT at the legacy path's width 272.
+   2^12-budget K3), and K3 and KT at the legacy path's width 272. K5m,
+   K5d and K4 also against Python integers, with the cuFFT route (their
+   plain versions on the card) as each one's plain time.
 8. Prints the card's name and power limit, one JSON line with each
    kernel's numbers (launches in all and by path), and as the last line
    {"ok": true, "device": {...}}.
@@ -158,6 +166,34 @@ OPS_K1, OPS_K1_U, OPS_K2, OPS_K3 = 83 / 30, 46 / 30, 36, 147
 # register swap, so the count is an upper one
 OPS_KT = 170
 OPS_K1_OLD, OPS_K2_OLD, OPS_K3_OLD = 108 / 13, 20, 74
+# K5m, K5d and K4: a 16 x 16 -> 32-bit limb product with its 64-bit add
+# counts 3 (the add as 2); a row's carry resolution 25 a limb (the 64-bit
+# split 4, two floor passes 10, the carry ballots 4, the ripple and store
+# 7); a digit step of K5d and K4 6 (the carry fold, the digit and its
+# broadcast); K4's comparison with d and subtraction 40 a limb (with a
+# canonicalization)
+OPS_MAD, OPS_CARRY, OPS_STEP, OPS_K4_TAIL = 3, 25, 6, 40
+# Their limb products are 8-bit-limb products, the work the JAX package
+# ran on the TPU's matrix unit as an 8-bit convolution and the plain
+# versions split into 8-bit limbs: their bound takes them at the card's
+# dense int8 tensor-core rate (data sheet), four 8-bit multiply-adds (8
+# ops) a 16 x 16-bit limb pair, beside the carries and digit steps at the
+# int32 rate (other units: the larger of the two counts)
+INT8_TC_OPS_PER_S = 1979e12
+OPS_TC_PAIR = 8
+# compose2's products (La, Lb, L_out), exact quotients (Lx, Ly, L_out) and
+# REDCs (Lx, Ld; Lh steps) at sec=128, k=128: L=144, Lh=72, Lu=200,
+# Lm=264, Lsq=136 (forms2.CG.compose2_unreduced)
+K5M_SHAPES = ((72, 72, 144), (72, 144, 144), (72, 144, 200), (200, 72, 264),
+              (136, 136, 264))
+K5D_SHAPES = ((144, 144, 72), (144, 72, 144), (144, 72, 72), (264, 264, 144))
+K4_SHAPES, K4_STEPS = ((72, 72), (8, 8)), 72
+# K5m's edge shapes: widths 1 to 288, L_out below, at and above La + Lb
+K5M_EDGE_SHAPES = ((1, 1, 1), (1, 1, 2), (1, 1, 3), (8, 8, 8), (8, 8, 16),
+                   (8, 8, 20), (72, 72, 72), (72, 72, 150), (144, 144, 144),
+                   (144, 144, 288), (144, 8, 160), (200, 72, 272), (200, 200, 288),
+                   (264, 264, 264), (264, 8, 272), (264, 24, 288), (288, 288, 288),
+                   (288, 1, 288), (1, 288, 288), (288, 288, 1))
 TIMING_REPS = 5
 
 
@@ -458,27 +494,267 @@ def check_kt(torch, cgp, cg, gmp, hsm, port, rng, B):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, err=0)
 
 
+def _limbs(torch, lb, vals, L):
+    return torch.as_tensor(lb.ints_to_limbs(vals, L)).to("cuda")
+
+
+def k5m_pairs(La: int, Lb: int, Lo: int) -> int:
+    """Limb products a row of a product mod 2^(16 Lo): pairs (i, j) with
+    i < min(La, Lo), j < min(Lb, Lo) and i + j < Lo."""
+    na, nb = min(La, Lo), min(Lb, Lo)
+    return sum(max(0, min(c, na - 1) - max(0, c - nb + 1) + 1) for c in range(Lo))
+
+
+def limb_bound(B, pairs, other, nbytes):
+    """(ms, by, CUDA-core ms): the bound of K5m, K5d or K4 on B rows of
+    `pairs` limb products and `other` int32 operations each, with the
+    products at the int8 tensor-core rate; and, as a second figure, with
+    the products on CUDA cores too (OPS_MAD each), as these kernels do them."""
+    t_ops = max(B * pairs * OPS_TC_PAIR / INT8_TC_OPS_PER_S, B * other / INT32_OPS_PER_S)
+    t_mem = nbytes / MEM_BYTES_PER_S
+    cuda_cores_ms = bound(B * (pairs * OPS_MAD + other), nbytes)[0]
+    return (max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes",
+            cuda_cores_ms)
+
+
+def k5m_bound(B, La, Lb, Lo):
+    return limb_bound(B, k5m_pairs(La, Lb, Lo), Lo * OPS_CARRY,
+                      4.0 * B * (min(La, Lo) + min(Lb, Lo) + Lo))
+
+
+def k5d_bound(B, Ly, Lo):
+    ny = min(Ly, Lo)
+    return limb_bound(B, sum(min(ny, Lo - k) for k in range(Lo)), Lo * OPS_STEP,
+                      4.0 * B * (Lo + ny + Lo))
+
+
+def k4_bound(B, Lx, Ld, steps):
+    N = max(Lx, steps + Ld) + 1
+    return limb_bound(B, steps * Ld, steps * OPS_STEP + N * (OPS_CARRY + OPS_K4_TAIL),
+                      4.0 * B * (2 * Lx + Ld) + B)
+
+
+def k5m_want(lb, a, b, Lo):
+    mod = 1 << (16 * Lo)
+    return [x * y % mod for x, y in zip(lb.limbs_to_ints(a.cpu()), lb.limbs_to_ints(b.cpu()))]
+
+
+def k5d_want(lb, x, y, Lo, label):
+    mod = 1 << (16 * Lo)
+    out = []
+    for i, (u, v) in enumerate(zip(lb.limbs_to_ints(x.cpu()), lb.limbs_to_ints(y.cpu()))):
+        if v % 2 == 0:
+            fail(f"{label} lane {i}: an even divisor")
+        out.append(u * pow(v, -1, mod) % mod)
+    return out
+
+
+def k4_want(lb, x, d, steps, active, label):
+    """x 2^(-16 steps) mod d on active lanes; floor(x / 2^(16 steps))
+    reduced once by d on the others."""
+    act = [True] * x.shape[0] if active is None else active.cpu().tolist()
+    out = []
+    for i, (u, v, a) in enumerate(zip(lb.limbs_to_ints(x.cpu()), lb.limbs_to_ints(d.cpu()),
+                                      act)):
+        if a:
+            if v % 2 == 0:
+                fail(f"{label} lane {i}: an even modulus on an active lane")
+            out.append(u * pow(2, -16 * steps, v) % v)
+        else:
+            r = u >> (16 * steps)
+            out.append(r - v if r >= v else r)
+    return out
+
+
+def k5m_operands(rng, B, La, Lb, edge: bool):
+    """Random canonical a (La limbs) and b (Lb limbs); with edge the first
+    lanes hold zero operands, all-0xFFFF limbs, 1 and the top limb alone."""
+    av = [rng.getrandbits(rng.randrange(1, 16 * La + 1)) for _ in range(B)]
+    bv = [rng.getrandbits(rng.randrange(1, 16 * Lb + 1)) for _ in range(B)]
+    if edge:
+        fa, fb = (1 << 16 * La) - 1, (1 << 16 * Lb) - 1
+        cases = [(0, bv[0]), (av[1], 0), (0, 0), (fa, fb), (fa, bv[4]), (av[5], fb),
+                 (1, fb), (fa, 1), (1 << 16 * (La - 1), 1 << 16 * (Lb - 1)),
+                 (fa, 1 << 16 * (Lb - 1))]
+        for i, (x, y) in enumerate(cases[:B]):
+            av[i], bv[i] = x, y
+    return av, bv
+
+
+def check_k5m(torch, cgp, lb, rng, B, La, Lb, Lo, edge=False, timing=True):
+    """K5m at (La, Lb) -> L_out on B synthetic lanes: bit-exact against its
+    plain version (the cuFFT route) and a * b mod 2^(16 L_out)."""
+    av, bv = k5m_operands(rng, B, La, Lb, edge)
+    a, b = _limbs(torch, lb, av, La), _limbs(torch, lb, bv, Lb)
+    got = cgp.mag_mul_cuda(a, b, Lo)
+    torch.cuda.synchronize()
+    label = f"K5m La={La} Lb={Lb} L_out={Lo} B={B}"
+    err = max_abs_diff(torch, [got], [cgp.mag_mul_plain(a, b, Lo)])
+    if err:
+        fail(f"{label} differs from its plain version (max {err})")
+    if lb.limbs_to_ints(got.cpu()) != k5m_want(lb, a, b, Lo):
+        fail(f"{label} differs from a * b mod 2^(16 L_out)")
+    if not timing:
+        return None
+    ms = timed(torch, lambda: cgp.mag_mul_cuda(a, b, Lo), TIMING_REPS)
+    plain_ms = timed(torch, lambda: cgp.mag_mul_plain(a, b, Lo), 1,
+                     warm=False) if B == KERNEL_B else float("nan")
+    bms, by, bcc = k5m_bound(B, La, Lb, Lo)
+    log(f"{label}: bit-exact vs plain and a * b mod 2^(16 L_out); kernel {ms:.4f} ms, "
+        f"plain (cuFFT) {plain_ms:.3f} ms, bound {bms:.5f} ms ({by}), on CUDA cores "
+        f"{bcc:.5f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_cuda_cores_ms=bcc, err=err)
+
+
+def k5d_operands(rng, B, Lx, Ly, Lo, edge: bool):
+    """Odd y (Ly limbs) and x (Lx limbs): exact multiples q y on odd lanes,
+    any x on even ones (the contract is x y^-1 mod 2^(16 L_out)); with
+    edge the first lanes hold y = 1, x = 0, y of one limb, all-0xFFFF y,
+    and quotients that fill L_out."""
+    xs, ys = [], []
+    for i in range(B):
+        y = rng.getrandbits(rng.randrange(1, 16 * Ly + 1)) | 1
+        if i % 2:
+            room = min(16 * Lx - y.bit_length(), 16 * Lo)
+            x = rng.getrandbits(rng.randrange(0, room + 1)) * y
+        else:
+            x = rng.getrandbits(rng.randrange(1, 16 * Lx + 1))
+        xs.append(x)
+        ys.append(y)
+    if edge:
+        full_q, full_x = (1 << 16 * Lo) - 1, (1 << 16 * Lx) - 1
+        small = rng.getrandbits(15) | (1 << 15) | 1
+        cases = [(xs[0], 1), (0, ys[1]), (0, 1), (full_q, 1), (full_q * small % (full_x + 1), small),
+                 (xs[5] * small % (full_x + 1), small), (xs[6], 3), (xs[7], (1 << 16 * Ly) - 1),
+                 (full_x, (1 << 16 * (Ly - 1)) + 1), (full_x, small)]
+        for i, (x, y) in enumerate(cases[:B]):
+            xs[i], ys[i] = x, y
+    return xs, ys
+
+
+def check_k5d(torch, cgp, lb, rng, B, Lx, Ly, Lo, edge=False):
+    """K5d at (Lx, Ly) -> L_out on B synthetic lanes: bit-exact against its
+    plain version and x y^-1 mod 2^(16 L_out) (the exact quotient on the
+    lanes where y | x)."""
+    xs, ys = k5d_operands(rng, B, Lx, Ly, Lo, edge)
+    x, y = _limbs(torch, lb, xs, Lx), _limbs(torch, lb, ys, Ly)
+    got = cgp.mag_divexact_odd_cuda(x, y, Lo)
+    torch.cuda.synchronize()
+    label = f"K5d Lx={Lx} Ly={Ly} L_out={Lo} B={B}{' with edge cases' if edge else ''}"
+    err = max_abs_diff(torch, [got], [cgp.mag_divexact_odd_plain(x, y, Lo)])
+    if err:
+        fail(f"{label} differs from its plain version (max {err})")
+    vals = lb.limbs_to_ints(got.cpu())
+    if vals != k5d_want(lb, x, y, Lo, label) or any(
+            v != (u // w) % (1 << 16 * Lo) for v, u, w in zip(vals, xs, ys) if u % w == 0):
+        fail(f"{label}: not x y^-1 mod 2^(16 L_out) or not the exact quotient")
+    ms = timed(torch, lambda: cgp.mag_divexact_odd_cuda(x, y, Lo), TIMING_REPS)
+    plain_ms = timed(torch, lambda: cgp.mag_divexact_odd_plain(x, y, Lo), 1,
+                     warm=False) if B == KERNEL_B else float("nan")
+    bms, by, bcc = k5d_bound(B, Ly, Lo)
+    log(f"{label}: bit-exact vs plain, x y^-1 mod 2^(16 L_out) and the exact quotients; "
+        f"{Lo} digit steps; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bms:.5f} ms ({by}), on CUDA cores {bcc:.5f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_cuda_cores_ms=bcc, err=err)
+
+
+def k4_operands(rng, B, Lx, Ld, edge: bool):
+    """Canonical x (Lx limbs), odd d (Ld limbs) and the active mask: 3 in 4
+    lanes active; an inactive lane has d = 1 (as compose2's masks leave
+    it) or a random odd d. With edge the first lanes hold d = 1, d of one
+    limb, all-0xFFFF d, x with its top limb set, x = 0, x = d - 1, x = d,
+    and inactive lanes with x's top limb set."""
+    xs, ds, act = [], [], []
+    for i in range(B):
+        a = rng.random() < 0.75
+        ds.append(rng.getrandbits(rng.randrange(1, 16 * Ld + 1)) | 1 if a or i % 2 else 1)
+        xs.append(rng.getrandbits(rng.randrange(1, 16 * Lx + 1)))
+        act.append(a)
+    if edge:
+        top = (0xFFFF << 16 * (Lx - 1)) | rng.getrandbits(16 * (Lx - 1))
+        one = rng.getrandbits(15) | (1 << 15) | 1
+        dmax = (1 << 16 * Ld) - 1
+        cases = [(xs[0], 1, True), (xs[1], one, True), (xs[2], dmax, True), (top, ds[3] | 1, True),
+                 (0, ds[4] | 1, True), ((ds[5] | 1) - 1, ds[5] | 1, True),
+                 (min(ds[6] | 1, (1 << 16 * Lx) - 1), ds[6] | 1, True), (top, dmax, True),
+                 (xs[8], 1, False), (top, ds[9] | 1, False), (top, 1, False), (0, one, False)]
+        for i, (x, d, a) in enumerate(cases[:B]):
+            xs[i], ds[i], act[i] = x, d, a
+    return xs, ds, act
+
+
+def check_k4(torch, cgp, lb, rng, B, Lx, Ld, steps=K4_STEPS, edge=False):
+    """K4 at (Lx, Ld) with `steps` on B synthetic lanes: bit-exact against
+    its plain version and x 2^(-16 steps) mod d (floor(x / 2^(16 steps))
+    reduced once by d on inactive lanes)."""
+    xs, ds, act = k4_operands(rng, B, Lx, Ld, edge)
+    x, d = _limbs(torch, lb, xs, Lx), _limbs(torch, lb, ds, Ld)
+    active = torch.tensor(act, dtype=torch.bool, device="cuda")
+    got = cgp.redc_mod_cuda(x, d, steps, active)
+    torch.cuda.synchronize()
+    label = f"K4 Lx={Lx} Ld={Ld} steps={steps} B={B}{' with edge cases' if edge else ''}"
+    err = max_abs_diff(torch, [got], [cgp.redc_mod_plain(x, d, steps, active)])
+    if err:
+        fail(f"{label} differs from its plain version (max {err})")
+    if lb.limbs_to_ints(got.cpu()) != k4_want(lb, x, d, steps, active, label):
+        fail(f"{label} differs from x 2^(-16 steps) mod d on Python integers")
+    ms = timed(torch, lambda: cgp.redc_mod_cuda(x, d, steps, active), TIMING_REPS)
+    plain_ms = timed(torch, lambda: cgp.redc_mod_plain(x, d, steps, active), 1,
+                     warm=False) if B == KERNEL_B else float("nan")
+    bms, by, bcc = k4_bound(B, Lx, Ld, steps)
+    log(f"{label}: bit-exact vs plain and Python integers ({sum(act)} active lanes); "
+        f"{steps} steps; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.5f} ms "
+        f"({by}), on CUDA cores {bcc:.5f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_cuda_cores_ms=bcc, err=err)
+
+
+def check_limb_kernels(torch, cgp, lb, rng):
+    """K5m, K5d and K4 at compose2's shapes on 16384, 1001 and 128
+    synthetic lanes (edge cases at 128), and K5m at its edge shapes.
+    Returns {kernel: {(shape, B): numbers}}."""
+    out = {"mag_mul": {}, "divexact_odd": {}, "redc_mod": {}}
+    for B in (KERNEL_B, RAGGED_B, SMALL_B):
+        edge = B == SMALL_B
+        for sh in K5M_SHAPES:
+            out["mag_mul"][(sh, B)] = check_k5m(torch, cgp, lb, rng, B, *sh, edge=edge)
+        for sh in K5D_SHAPES:
+            out["divexact_odd"][(sh, B)] = check_k5d(torch, cgp, lb, rng, B, *sh, edge=edge)
+        for sh in K4_SHAPES:
+            out["redc_mod"][(sh, B)] = check_k4(torch, cgp, lb, rng, B, *sh, edge=edge)
+    for sh in K5M_EDGE_SHAPES:
+        check_k5m(torch, cgp, lb, rng, SMALL_B, *sh, edge=True, timing=False)
+    log(f"K5m edge shapes (La, Lb, L_out) {list(K5M_EDGE_SHAPES)} at {SMALL_B} lanes: "
+        f"bit-exact vs plain and a * b mod 2^(16 L_out) (zero operands, all-0xFFFF "
+        f"limbs, 1, top limbs alone)")
+    return out
+
+
 # ------------------------------------------- main-path operands and launches
 
 
 class Recorder:
-    """Wraps the four kernel wrappers of cuda_group: keeps the operands of
-    the first eager call at each (kernel, width, nbits or Lm, batch) key in
-    the chosen (phase, batch) pairs. A graph replay calls no wrapper and a
-    capture runs no kernel, so operands come from eager calls only (a
-    graph's warm-up is one); cuda_group counts the launches by key itself.
-    Not part of the package; removed after the run."""
+    """Wraps the kernel wrappers of cuda_group (all seven, or the chosen
+    ones): keeps the operands of the first eager call at each (kernel,
+    width, extra, batch) key in the chosen (phase, batch) pairs. A graph
+    replay calls no wrapper and a capture runs no kernel, so operands come
+    from eager calls only (a graph's warm-up is one); cuda_group counts the
+    launches by key itself. Not part of the package; removed after the
+    run."""
 
     WANT = {("decrypt", 128), ("matmul", 256), ("matmul", 16384)}
+    WRAPPERS = ("xgcd_coeff_g_cuda", "mod_topdown_cuda", "reduce2_grouped_loop_cuda",
+                "reduce_exact_cuda", "mag_mul_cuda", "mag_divexact_odd_cuda",
+                "redc_mod_cuda")
 
-    def __init__(self, torch, cgp, want=None):
+    def __init__(self, torch, cgp, want=None, wrappers=None):
         self.torch, self.cgp = torch, cgp
         self.want = self.WANT if want is None else want
         self.phase = None
         self.ops: dict = {}
-        self.orig = {n: getattr(cgp, n) for n in (
-            "xgcd_coeff_g_cuda", "mod_topdown_cuda", "reduce2_grouped_loop_cuda",
-            "reduce_exact_cuda")}
+        self.orig = {n: getattr(cgp, n) for n in (wrappers or self.WRAPPERS)}
 
     def _note(self, key, args):
         if (self.phase, key[3]) in self.want and key not in self.ops \
@@ -508,10 +784,27 @@ class Recorder:
             rec._note(("reduce_exact", a.shape[1], 0, a.shape[0]), (a, b, c, max_iters))
             return orig["reduce_exact_cuda"](a, b, c, max_iters, iters=iters)
 
-        self.cgp.xgcd_coeff_g_cuda = xgcd
-        self.cgp.mod_topdown_cuda = mod
-        self.cgp.reduce2_grouped_loop_cuda = red
-        self.cgp.reduce_exact_cuda = exact
+        def mul(ma, mb, L_out=None):
+            Lo = ma.shape[-1] + mb.shape[-1] if L_out is None else L_out
+            rec._note(("mag_mul", Lo, f"{ma.shape[-1]}x{mb.shape[-1]}",
+                       math.prod(ma.shape[:-1])), (ma, mb, Lo))
+            return orig["mag_mul_cuda"](ma, mb, L_out)
+
+        def quo(x, y, L_out):
+            rec._note(("divexact_odd", L_out, f"{x.shape[-1]}x{y.shape[-1]}",
+                       math.prod(x.shape[:-1])), (x, y, L_out))
+            return orig["mag_divexact_odd_cuda"](x, y, L_out)
+
+        def redc(x, d, steps, active=None):
+            rec._note(("redc_mod", x.shape[1], d.shape[1], x.shape[0]),
+                      (x, d, steps, active))
+            return orig["redc_mod_cuda"](x, d, steps, active)
+
+        new = {"xgcd_coeff_g_cuda": xgcd, "mod_topdown_cuda": mod,
+               "reduce2_grouped_loop_cuda": red, "reduce_exact_cuda": exact,
+               "mag_mul_cuda": mul, "mag_divexact_odd_cuda": quo, "redc_mod_cuda": redc}
+        for n in self.orig:
+            setattr(self.cgp, n, new[n])
         return self
 
     def __exit__(self, *exc):
@@ -552,7 +845,7 @@ def check_path_launches(cgp, path: str):
         fail(f"the {path}'s launch counts {json.dumps(by_batch)} disagree with the "
              f"dispatcher calls and graph replays {json.dumps(CALLS)}")
     log(f"{path} launches: " + json.dumps(launches))
-    log(f"{path} launches by (kernel, width, nbits or Lm, batch): " + json.dumps(
+    log(f"{path} launches by (kernel, width, extra, batch): " + json.dumps(
         {",".join(map(str, k)): v for k, v in sorted(by_key.items())}))
     return launches, by_key
 
@@ -637,7 +930,7 @@ def compare_decrypt(torch, cgp, port, rec, main):
     """The main path's 128 ciphertexts decrypted once more by graph replays
     (the main engine, its graphs captured) and once by an eager engine:
     the c1^sk forms and the plaintexts must be bit-identical, and equal to
-    the main path's, and the K1-KT launch counts equal. The eager run
+    the main path's, and every kernel's launch count equal. The eager run
     records the decrypt operands."""
     from cofhe_tpu_torch.core.qfi import neg, reduce_form
 
@@ -927,7 +1220,8 @@ def run_legacy(torch, cgp, port, main, rng):
     xg[8], xg[9] = 0, xf[9]
     timer = PhaseTimer("cuda")
     phases = timer.phases
-    rec = Recorder(torch, cgp, want={("legacy", LEGACY_B)})
+    rec = Recorder(torch, cgp, want={("legacy", LEGACY_B)},
+                   wrappers=Recorder.WRAPPERS[:4])
     rec.phase = "legacy"
     reset_counts(cgp)
     with rec, torch.inference_mode():
@@ -1006,11 +1300,12 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
     name, W, extra, B = key
     dev = args[0].device
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
-    row = {"name": f"{name}[W={W},{'nbits' if name == 'xgcd_coeff_g' else 'Lm'}="
-                   f"{extra}]@B={B}" if not extra else f"{name}[W={W}]@B={B}",
-           "launches": n_launch, "library_ms": None}
-    old_ops = None
-    if name == "xgcd_coeff_g":
+    row = {"name": row_name(key), "launches": n_launch, "library_ms": None}
+    old_ops = trips = None
+    if name in ("mag_mul", "divexact_odd", "redc_mod"):
+        ms, plain_ms, (bms, by, row["bound_cuda_cores_ms"]), trips = limb_row(
+            torch, cgp, lb, row, key, args)
+    elif name == "xgcd_coeff_g":
         f, g, m, nbits = args
         got = cgp.xgcd_coeff_g_cuda(f, g, m, nbits, iters=iters)
         row["max_abs_err"] = max_abs_diff(torch, got, cgp.xgcd_coeff_g_plain(f, g, m, nbits))
@@ -1079,10 +1374,11 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
         row["tail_iters"] = int(iters.long().sum())
     if row["max_abs_err"]:
         fail(f"{row['name']}: differs from its plain version")
-    ms = timed(torch, fn, TIMING_REPS)
-    bms, by = bound(ops, nbytes)
-    row.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-               trips=k1_trips(iters, cgp.xgcd2.STEPS) if name == "xgcd_coeff_g" else _stats(iters))
+    if trips is None:
+        ms = timed(torch, fn, TIMING_REPS)
+        bms, by = bound(ops, nbytes)
+        trips = k1_trips(iters, cgp.xgcd2.STEPS) if name == "xgcd_coeff_g" else _stats(iters)
+    row.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, trips=trips)
     if old_ops is not None:
         row["bound_old_counts_ms"] = bound(old_ops, nbytes)[0]
     log(f"table {row['name']}: launches {n_launch}, trips {row['trips']}, "
@@ -1090,10 +1386,62 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
         f"{bms / ms:.1%} of it)"
         + (f", bound at the earlier per-limb counts {row['bound_old_counts_ms']:.5f} ms "
            f"({row['bound_old_counts_ms'] / ms:.1%} of it)" if old_ops is not None else "")
+        + (f", bound with its products on CUDA cores {row['bound_cuda_cores_ms']:.5f} ms "
+           f"({row['bound_cuda_cores_ms'] / ms:.1%} of it)"
+           if "bound_cuda_cores_ms" in row else "")
         + (f", exact-tail steps in all {row['tail_iters']}" if "tail_iters" in row else "")
         + (f", oracle ok, {row['d_gt_1_lanes']} lanes with d > 1"
            if "d_gt_1_lanes" in row else ""))
     return row
+
+
+def row_name(key) -> str:
+    name, W, extra, B = key
+    if name in ("mag_mul", "divexact_odd"):
+        u, v = extra.split("x")
+        shape = (f"La={u},Lb={v}" if name == "mag_mul" else f"Lx={u},Ly={v}") + f",L_out={W}"
+    elif name == "redc_mod":
+        shape = f"Lx={W},Ld={extra}"
+    elif name in ("xgcd_coeff_g", "mod_topdown"):
+        shape = f"W={W},{'nbits' if name == 'xgcd_coeff_g' else 'Lm'}={extra}"
+    else:
+        shape = f"W={W}"
+    return f"{name}[{shape}]@B={B}"
+
+
+def limb_row(torch, cgp, lb, row, key, args):
+    """K5m, K5d or K4 at one recorded main-path shape and batch: against
+    its plain version and Python integers; (ms, plain ms, bound, trips)."""
+    name, W, _, B = key
+    if name == "mag_mul":
+        a, b, Lo = args
+        got = cgp.mag_mul_cuda(a, b, Lo)
+        plain = lambda: cgp.mag_mul_plain(a, b, Lo)  # noqa: E731
+        fn = lambda: cgp.mag_mul_cuda(a, b, Lo)  # noqa: E731
+        want = k5m_want(lb, a, b, Lo)
+        bnd = k5m_bound(B, a.shape[-1], b.shape[-1], Lo)
+        trips = f"no loop: {k5m_pairs(a.shape[-1], b.shape[-1], Lo)} limb products a row"
+    elif name == "divexact_odd":
+        x, y, Lo = args
+        got = cgp.mag_divexact_odd_cuda(x, y, Lo)
+        plain = lambda: cgp.mag_divexact_odd_plain(x, y, Lo)  # noqa: E731
+        fn = lambda: cgp.mag_divexact_odd_cuda(x, y, Lo)  # noqa: E731
+        want = k5d_want(lb, x, y, Lo, row["name"])
+        bnd = k5d_bound(B, y.shape[-1], Lo)
+        trips = f"{Lo} digit steps"
+    else:
+        x, d, steps, active = args
+        got = cgp.redc_mod_cuda(x, d, steps, active)
+        plain = lambda: cgp.redc_mod_plain(x, d, steps, active)  # noqa: E731
+        fn = lambda: cgp.redc_mod_cuda(x, d, steps, active)  # noqa: E731
+        want = k4_want(lb, x, d, steps, active, row["name"])
+        bnd = k4_bound(B, W, d.shape[1], steps)
+        trips = f"{steps} steps, {B if active is None else int(active.sum())} active lanes"
+    row["max_abs_err"] = max_abs_diff(torch, [got], [plain()])
+    if lb.limbs_to_ints(got.cpu()) != want:
+        fail(f"{row['name']}: differs from Python integers on the recorded operands")
+    plain_ms = timed(torch, plain, 1, warm=False)
+    return timed(torch, fn, TIMING_REPS), plain_ms, bnd, trips
 
 
 def decrypt_k1_lanes(lb, rec):
@@ -1139,7 +1487,7 @@ def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128):
     """Host wall time and device time of one compose2 at the decrypt
     ladder's batch (the device's busy share of a step), its span on the
     card's clock between CUDA events recorded before and after it, the
-    device time split into the four kernels and everything else, and with
+    device time split into the seven kernels and everything else, and with
     the NUCOMP tail the Lehmer walk's groups a lane. A graph replay is
     profiled as it runs: copies in, one replay, clones out."""
     from torch.autograd import DeviceType
@@ -1167,7 +1515,8 @@ def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128):
     # device-side events only: a CPU op's device time repeats its kernels'
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     split = dict.fromkeys(("xgcd_coeff_g", "mod_topdown", "reduce2_grouped",
-                           "reduce_exact", "other"), 0.0)
+                           "reduce_exact", "mag_mul", "divexact_odd", "redc_mod",
+                           "other"), 0.0)
     for e in device:
         k = next((n for n in split if n + "_kernel" in e.name), "other")
         split[k] += e.self_device_time_total / 1e3
@@ -1284,6 +1633,7 @@ def main() -> int:
                       bform_to_forms, rng, B) for B in (KERNEL_B, RAGGED_B, SMALL_B)}
     kt = {B: check_kt(torch, cgp, cg, gmp, hsm, port, rng, B)
           for B in (KERNEL_B, RAGGED_B, SMALL_B)}
+    limb_k = check_limb_kernels(torch, cgp, lb, rng)
     log(f"kernel checks: {time.perf_counter() - t:.1f} s")
 
     from cofhe_tpu_torch.ops import graphs
@@ -1344,6 +1694,8 @@ def main() -> int:
                 "launches_by_path": {k: p[name] for k, p in by_path.items()},
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                **({"bound_cuda_cores_ms": r["bound_cuda_cores_ms"]}
+                   if "bound_cuda_cores_ms" in r else {}),
                 "library_ms": None}
 
     src = {"xgcd_coeff_g": ("cofhe_tpu_torch/csrc/xgcd_coeff_g.cu",
@@ -1353,12 +1705,22 @@ def main() -> int:
            "reduce2_grouped": ("cofhe_tpu_torch/csrc/reduce2_grouped.cu",
                                "cofhe_tpu/ops/forms2.py:233"),
            "reduce_exact": ("cofhe_tpu_torch/csrc/reduce_exact.cu",
-                            "cofhe_tpu/ops/forms.py:207")}
+                            "cofhe_tpu/ops/forms.py:207"),
+           "mag_mul": ("cofhe_tpu_torch/csrc/mag_mul.cu", "cofhe_tpu/ops/limb.py:352"),
+           "divexact_odd": ("cofhe_tpu_torch/csrc/divexact_odd.cu",
+                            "cofhe_tpu/ops/limb.py:566"),
+           "redc_mod": ("cofhe_tpu_torch/csrc/redc_mod.cu", "cofhe_tpu/ops/rl.py:486")}
     kernels = [
         entry("xgcd_coeff_g", *src["xgcd_coeff_g"], k1[(88, False, KERNEL_B)]),
         entry("mod_topdown", *src["mod_topdown"], k2[KERNEL_B]),
         entry("reduce2_grouped", *src["reduce2_grouped"], k3[KERNEL_B]),
         entry("reduce_exact", *src["reduce_exact"], kt[KERNEL_B]),
+        # the 16384-lane ladder's a3 / t / t2 product, m2 quotient and
+        # width-72 REDC (every shape has its own table row below)
+        entry("mag_mul", *src["mag_mul"], limb_k["mag_mul"][((72, 144, 144), KERNEL_B)]),
+        entry("divexact_odd", *src["divexact_odd"],
+              limb_k["divexact_odd"][((144, 72, 144), KERNEL_B)]),
+        entry("redc_mod", *src["redc_mod"], limb_k["redc_mod"][((72, 72), KERNEL_B)]),
     ]
     for r in table:
         base_name = r["name"].split("[")[0].split("@")[0]

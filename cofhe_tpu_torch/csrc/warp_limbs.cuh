@@ -338,4 +338,118 @@ __device__ __forceinline__ void spread_carry(const long long (&s)[NPT],
   for (int j = 0; j < NPT; j++) out[j] = lane * NPT + j < W ? acc[j] : 0;
 }
 
+// ---- nonnegative limbs and 64-bit column sums (K5m, K5d, K4)
+
+// Nonnegative limbs (each below 2^30) -> canonical limbs of their value mod
+// 2^(16 W) (limb.canonicalize_nonneg). Two floor passes bound every limb but
+// the top to [0, 2^16], so each carry is 0 or 1: a thread's block of lower
+// limbs generates a carry (g), stops it, or passes its carry-in on (p), and
+// the highest deciding block below a thread gives its carry-in, from two
+// ballots. The top limb drops what passes it.
+template <int NPT>
+__device__ __forceinline__ void carry_nonneg(int (&x)[NPT], int lane, int W) {
+  floor_pass<NPT>(x, lane, W);
+  floor_pass<NPT>(x, lane, W);
+  bool g = false, p = true;
+#pragma unroll
+  for (int j = 0; j < NPT; j++) {
+    if (lane * NPT + j < W - 1) {
+      const bool pl = x[j] == 0xFFFF;
+      g = x[j] > 0xFFFF || (pl && g);
+      p = pl && p;
+    }
+  }
+  const uint32_t G = __ballot_sync(WL_FULL, g);
+  const uint32_t decides = (G | ~__ballot_sync(WL_FULL, p)) & ((1u << lane) - 1u);
+  int c = decides ? (int)((G >> (31 - __clz(decides))) & 1u) : 0;
+#pragma unroll
+  for (int j = 0; j < NPT; j++) {
+    const int t = x[j] + c;
+    x[j] = lane * NPT + j < W ? (t & 0xFFFF) : 0;
+    c = t >> 16;
+  }
+}
+
+// 64-bit column sums s (each in [0, 2^46)) -> nonnegative limbs (below
+// 2^31) of the same value mod 2^(16 W), for carry_nonneg: limb i takes the
+// low 16 bits of s_i and the rest of s_(i-1).
+template <int NPT, typename T>
+__device__ __forceinline__ void split_u64(const T (&s)[NPT], int (&x)[NPT],
+                                          int lane, int W) {
+  T below = __shfl_up_sync(WL_FULL, s[NPT - 1], 1);
+  if (lane == 0) below = 0;
+#pragma unroll
+  for (int j = 0; j < NPT; j++) {
+    const T prev = j == 0 ? below : s[j - 1];
+    x[j] = lane * NPT + j < W ? (int)(s[j] & 0xFFFF) + (int)(prev >> 16) : 0;
+  }
+}
+
+// ---- Hensel digit steps (K5d's quotient, K4's Montgomery digits)
+
+// A remainder as 64-bit sums at fixed positions, NPT a thread, never
+// shifted. Position k-1's carry joins position k and k-1 is cleared: once
+// its digit is taken it is a multiple of 2^16 (a REDC row outside its mask
+// takes no digit and drops its low bits there, which is the floor).
+template <int NPT>
+__device__ __forceinline__ void hensel_fold(long long (&r)[NPT], int k,
+                                            int lane) {
+  const int owner = k / NPT, slot = k - owner * NPT;  // warp-uniform
+  const int pslot = (slot + NPT - 1) % NPT, powner = (k - 1) / NPT;
+  long long c = 0;
+#pragma unroll
+  for (int j = 0; j < NPT; j++) {
+    if (j == pslot) {
+      c = r[j] >> 16;
+      if (lane == powner) r[j] = 0;
+    }
+  }
+  if (slot == 0) c = __shfl_up_sync(WL_FULL, c, 1);
+  if (lane == owner) {
+#pragma unroll
+    for (int j = 0; j < NPT; j++)
+      if (j == slot) r[j] += c;
+  }
+}
+
+// `steps` digit steps, LSB first. Step k folds position k-1 into k, takes
+// the digit t = (position k mod 2^16) * inv mod 2^16 on the owner lane (0
+// where `live` is false), broadcasts it and adds t * div[m] at positions
+// k + m < W, m < Ld (div in shared memory). QUOTIENT takes t * div[m] off
+// instead and keeps each digit in q at its position: with inv = div^-1 mod
+// 2^16 the digits are x * div^-1 mod 2^(16 steps) (K5d). Otherwise, with
+// inv = -div^-1 mod 2^16, the positions from `steps` on hold (x + Q div) /
+// 2^(16 steps) once position `steps` is folded (K4). A position's sum stays
+// within 2^46 of 0.
+template <int NPT, bool QUOTIENT>
+__device__ __forceinline__ void hensel_steps(long long (&r)[NPT],
+                                             int (&q)[NPT],
+                                             const uint32_t* div, int Ld,
+                                             int W, uint32_t inv, bool live,
+                                             int steps, int lane) {
+  for (int k = 0; k < steps; k++) {
+    if (k > 0) hensel_fold<NPT>(r, k, lane);
+    const int owner = k / NPT, slot = k - owner * NPT;  // warp-uniform
+    long long rk = 0;
+#pragma unroll
+    for (int j = 0; j < NPT; j++)
+      if (j == slot) rk = r[j];
+    uint32_t t = live ? ((((uint32_t)rk & 0xFFFFu) * inv) & 0xFFFFu) : 0u;
+    t = __shfl_sync(WL_FULL, t, owner);
+    if (QUOTIENT && lane == owner) {
+#pragma unroll
+      for (int j = 0; j < NPT; j++)
+        if (j == slot) q[j] = (int)t;
+    }
+#pragma unroll
+    for (int j = 0; j < NPT; j++) {
+      const int i = lane * NPT + j, m = i - k;
+      if (m >= 0 && m < Ld && i < W) {
+        const long long p = (long long)(t * div[m]);
+        r[j] += QUOTIENT ? -p : p;
+      }
+    }
+  }
+}
+
 }  // namespace wl

@@ -1,7 +1,7 @@
 """Hopper kernels for the class-group hot loops (counterpart of
 cofhe_tpu/ops/pallas_group.py).
 
-Four kernels, CUDA C++ for sm_90a under cofhe_tpu_torch/csrc/, built with
+Seven kernels, CUDA C++ for sm_90a under cofhe_tpu_torch/csrc/, built with
 nvcc into plain-C shared libraries at first use and bound with ctypes. Each
 gives one warp to one batch row; the source notes say more.
 
@@ -33,17 +33,32 @@ gives one warp to one batch row; the source notes say more.
   reduced forms are unique, so the two agree bit for bit although their
   step sequences differ.
 
+* K5m `mag_mul` (csrc/mag_mul.cu) replaces the XLA product of
+  limb.py::_poly_mul8 / mag_mul: a * b mod 2^(16 L_out) from 64-bit
+  column sums; its plain version is limb.mag_mul_plain (a float64 FFT).
+* K5d `divexact_odd` (csrc/divexact_odd.cu) replaces the XLA Hensel scan
+  of limb.py::mag_divexact_odd: x * y^-1 mod 2^(16 L_out) for odd y, LSB
+  first from its own 16-bit inverse; its plain version is
+  limb.mag_divexact_odd_plain (a 2-adic Newton inverse and a product).
+* K4 `redc_mod` (csrc/redc_mod.cu) replaces the XLA loop of
+  rl.py::redc_pow16 with the port's final subtraction (forms2.CG.
+  _redc_mod): x * 2^(-16 steps) mod d in [0, d) for odd d, limb by limb
+  from its own 16-bit inverse; its plain version is rl.redc_mod.
+
 The main path runs 97% of K2's and K3's launches at 128-256 lanes, where a
 kernel's time is the latency of one warp's loop rather than the card's
 rate; every kernel runs four lanes a block. The earlier plain versions,
 rl.mod_topdown and forms2.grouped_rho_loop, stay as references.
 
-The dispatchers `xgcd_coeff_g`, `mod_topdown`, `reduce2_grouped_loop` and
-`reduce_exact` are what ops/forms2.py calls: a CPU tensor goes to the plain
-version, a CUDA tensor to the kernel, and anything else raises; there is no
-fallback from the kernel to the plain version. Each `*_cuda` wrapper adds
-one to `LAUNCHES[name]` and to `LAUNCHES_BY_KEY[(name, width, nbits or Lm
-or 0, batch)]` where it launches its kernel and nowhere else. While a
+The dispatchers `xgcd_coeff_g`, `mod_topdown`, `reduce2_grouped_loop`,
+`reduce_exact`, `mag_mul`, `mag_divexact_odd` and `redc_mod` are what
+ops/forms2.py (and limb.mag_mul / mag_divexact_odd) call: a CPU tensor
+goes to the plain version (`plain_route`), a CUDA tensor to the kernel, and
+anything else raises; there is no fallback from the kernel to the plain
+version. Each `*_cuda` wrapper adds one to `LAUNCHES[name]` and to
+`LAUNCHES_BY_KEY[(name, width, extra, batch)]` (extra: nbits or Lm, the
+operand widths "LaxLb" of a product or "LxxLy" of a quotient, d's width
+for a REDC, else 0) where it launches its kernel and nowhere else. While a
 thread captures a CUDA graph (`capturing_launches`, ops/graphs.py) its
 launches are recorded into the graph's key list instead, and each replay
 of the graph counts them (`count_launches`): the kernels run once a replay.
@@ -80,11 +95,14 @@ _ARGTYPES = {
     "mod_topdown": [_P] * 4 + [_I] * 4 + [_P],
     "reduce2_grouped": [_P] * 7 + [_I] * 4 + [_D, _P],
     "reduce_exact": [_P] * 8 + [_I] * 3 + [_P],
+    "mag_mul": [_P] * 3 + [_I] * 6 + [_P],
+    "divexact_odd": [_P] * 3 + [_I] * 6 + [_P],
+    "redc_mod": [_P] * 4 + [_I] * 6 + [_P],
 }
 KERNELS = tuple(_ARGTYPES)
 
 LAUNCHES = {name: 0 for name in KERNELS}
-# launches by (kernel, width, nbits or Lm or 0, batch)
+# launches by (kernel, width, extra, batch)
 LAUNCHES_BY_KEY: dict = {}
 # the key list of the graph this thread is capturing, if any
 _CAPTURE = threading.local()
@@ -205,10 +223,42 @@ def _iters_ptr(iters, B: int, ref: torch.Tensor):
     return iters.data_ptr()
 
 
+def _rows(name: str, t: torch.Tensor, ref: torch.Tensor | None = None):
+    """(rows, row stride): t's limbs as (rows, W) int32 on one CUDA device
+    with unit limb stride (a copy only where the view has none)."""
+    if t.device.type != "cuda" or (ref is not None and t.device != ref.device):
+        raise ValueError(f"{name}: every tensor must be on one CUDA device, "
+                         f"got {t.device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name}: int32 limbs required, got {t.dtype}")
+    x = t.reshape(-1, t.shape[-1])
+    if x.shape[1] > 1 and x.stride(1) != 1:
+        x = x.contiguous()
+    return x, x.stride(0)
+
+
+def _broadcast(name: str, u: torch.Tensor, v: torch.Tensor):
+    """u and v with their leading dimensions broadcast against each other,
+    as the plain versions' products broadcast them, and that shape."""
+    try:
+        lead = torch.broadcast_shapes(u.shape[:-1], v.shape[:-1])
+    except RuntimeError as e:
+        raise ValueError(f"{name}: leading shapes {tuple(u.shape[:-1])} and "
+                         f"{tuple(v.shape[:-1])} do not broadcast") from e
+    return u.expand(*lead, u.shape[-1]), v.expand(*lead, v.shape[-1]), lead
+
+
+def plain_route(t: torch.Tensor) -> bool:
+    """Whether the dispatchers send `t` to the plain versions: a CPU tensor
+    does; a CUDA tensor goes to the kernels, and the wrappers refuse any
+    other device."""
+    return t.device.type == "cpu"
+
+
 def _launch(key: tuple, ref: torch.Tensor, *args) -> None:
     """Launch kernel key[0] on the current stream of ref's device; count it
-    under `key` = (name, width, nbits or Lm or 0, batch), or record it in
-    the graph this thread is capturing."""
+    under `key` = (name, width, extra, batch), or record it in the graph
+    this thread is capturing."""
     name = key[0]
     fn = build()[name]
     with torch.cuda.device(ref.device):
@@ -250,7 +300,7 @@ def xgcd_coeff_g_cuda(f_mag, g_mag, m_mag, nbits: int, need_u: bool = False,
 
 def xgcd_coeff_g(f_mag, g_mag, m_mag, nbits: int, need_u: bool = False):
     """Dispatcher: plain version for CPU tensors, K1 for CUDA tensors."""
-    if f_mag.device.type == "cpu":
+    if plain_route(f_mag):
         return xgcd_coeff_g_plain(f_mag, g_mag, m_mag, nbits, need_u=need_u)
     return xgcd_coeff_g_cuda(f_mag, g_mag, m_mag, nbits, need_u=need_u)
 
@@ -282,7 +332,7 @@ def mod_topdown_cuda(x, m_mag, max_iters: int, iters=None):
 
 def mod_topdown(x, m_mag, max_iters: int):
     """Dispatcher: plain version for CPU tensors, K2 for CUDA tensors."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         return mod_topdown_plain(x, m_mag, max_iters)
     return mod_topdown_cuda(x, m_mag, max_iters)
 
@@ -320,7 +370,7 @@ def reduce2_grouped_loop_cuda(a, b, c, dD_mant: float, dD_top: int,
 def reduce2_grouped_loop(a, b, c, dD_mant: float, dD_top: int,
                          red_iters: int):
     """Dispatcher: plain version for CPU tensors, K3 for CUDA tensors."""
-    if a.device.type == "cpu":
+    if plain_route(a):
         return reduce2_grouped_loop_plain(a, b, c, dD_mant, dD_top, red_iters)
     return reduce2_grouped_loop_cuda(a, b, c, dD_mant, dD_top, red_iters)
 
@@ -360,6 +410,116 @@ def reduce_exact_cuda(a, b, c, max_iters: int, iters=None) -> BForm:
 
 def reduce_exact(a, b, c, max_iters: int) -> BForm:
     """Dispatcher: plain version for CPU tensors, KT for CUDA tensors."""
-    if a.device.type == "cpu":
+    if plain_route(a):
         return reduce_exact_plain(a, b, c, max_iters)
     return reduce_exact_cuda(a, b, c, max_iters)
+
+
+# ------------------------------------------------------------ K5m: products
+
+mag_mul_plain = lb.mag_mul_plain
+
+
+def mag_mul_cuda(ma, mb, L_out: int | None = None):
+    """K5m on the card: limb.mag_mul_plain's product, (..., L_out)
+    canonical (mod 2^(16 L_out)), of canonical (..., La) and (..., Lb)
+    limbs whose leading shapes broadcast (each limb read as its low 16
+    bits, as the plain version reads it)."""
+    La, Lb = ma.shape[-1], mb.shape[-1]
+    if L_out is None:
+        L_out = La + Lb
+    ma, mb, lead = _broadcast("mag_mul", ma, mb)
+    if not 1 <= L_out <= MAX_LIMBS or max(La, Lb) > MAX_LIMBS:
+        raise ValueError(f"mag_mul: widths La={La}, Lb={Lb}, L_out={L_out} "
+                         f"outside [1, {MAX_LIMBS}]")
+    a, sa = _rows("mag_mul", ma)
+    b, sb = _rows("mag_mul", mb, a)
+    B = a.shape[0]
+    out = torch.empty((B, L_out), dtype=torch.int32, device=a.device)
+    _launch(("mag_mul", L_out, f"{La}x{Lb}", B), a, a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), B, La, Lb, sa, sb, L_out)
+    return out.reshape(*lead, L_out)
+
+
+def mag_mul(ma, mb, L_out: int | None = None):
+    """Dispatcher: plain version for CPU tensors, K5m for CUDA tensors."""
+    if plain_route(ma):
+        return mag_mul_plain(ma, mb, L_out)
+    return mag_mul_cuda(ma, mb, L_out)
+
+
+# ------------------------------------------------ K5d: exact quotients
+
+
+mag_divexact_odd_plain = lb.mag_divexact_odd_plain
+
+
+def mag_divexact_odd_cuda(x, y, L_out: int):
+    """K5d on the card: x * y^-1 mod 2^(16 L_out) for odd y (L_out <= x's
+    width; leading shapes broadcast), as limb.mag_divexact_odd_plain gives
+    it; the kernel takes its own 16-bit inverse of y."""
+    Lx, Ly = x.shape[-1], y.shape[-1]
+    x, y, lead = _broadcast("mag_divexact_odd", x, y)
+    if L_out > Lx:
+        raise ValueError(f"L_out {L_out} exceeds the dividend width {Lx}")
+    if not 1 <= L_out <= MAX_LIMBS or max(Lx, Ly) > MAX_LIMBS or Ly < 1:
+        raise ValueError(f"mag_divexact_odd: widths Lx={Lx}, Ly={Ly}, "
+                         f"L_out={L_out} outside [1, {MAX_LIMBS}]")
+    xr, sx = _rows("mag_divexact_odd", x)
+    yr, sy = _rows("mag_divexact_odd", y, xr)
+    B = xr.shape[0]
+    q = torch.empty((B, L_out), dtype=torch.int32, device=xr.device)
+    _launch(("divexact_odd", L_out, f"{Lx}x{Ly}", B), xr, xr.data_ptr(),
+            yr.data_ptr(), q.data_ptr(), B, Lx, Ly, sx, sy, L_out)
+    return q.reshape(*lead, L_out)
+
+
+def mag_divexact_odd(x, y, L_out: int, inv=None):
+    """Dispatcher: plain version (with `inv`, if given) for CPU tensors,
+    K5d for CUDA tensors."""
+    if plain_route(x):
+        return mag_divexact_odd_plain(x, y, L_out, inv=inv)
+    return mag_divexact_odd_cuda(x, y, L_out)
+
+
+# ------------------------------------------------------- K4: Montgomery REDC
+
+
+redc_mod_plain = rl.redc_mod
+
+
+def redc_mod_cuda(x, d_mag, steps: int, active=None):
+    """K4 on the card: rl.redc_mod's x * 2^(-16 steps) mod d in [0, d) at
+    x's width, for canonical (B, Lx) x and odd (B, Ld) d, Ld <= Lx; rows
+    outside the (B,) bool `active` get floor(x / 2^(16 steps)) reduced
+    once by d. The kernel takes its own 16-bit inverse of d."""
+    if x.dim() != 2 or d_mag.dim() != 2 or d_mag.shape[0] != x.shape[0]:
+        raise ValueError(f"redc_mod: (B, Lx) x and (B, Ld) d required, got "
+                         f"{tuple(x.shape)} and {tuple(d_mag.shape)}")
+    Lx, Ld = x.shape[1], d_mag.shape[1]
+    if not 1 <= Ld <= Lx or steps < 0 or max(Lx, steps + Ld) + 1 > MAX_LIMBS:
+        raise ValueError(f"redc_mod: need 1 <= Ld <= Lx and max(Lx, steps + Ld) "
+                         f"< {MAX_LIMBS}, got Lx={Lx}, Ld={Ld}, steps={steps}")
+    xr, sx = _rows("redc_mod", x)
+    dr, sd = _rows("redc_mod", d_mag, xr)
+    B = xr.shape[0]
+    act = None
+    if active is not None:
+        if active.shape != (B,) or active.dtype != torch.bool \
+                or active.device != xr.device:
+            raise ValueError("redc_mod: active must be a (B,) bool tensor on "
+                             "the inputs' device")
+        act = active.contiguous()
+    out = torch.empty((B, Lx), dtype=torch.int32, device=xr.device)
+    _launch(("redc_mod", Lx, Ld, B), xr, xr.data_ptr(), dr.data_ptr(),
+            None if act is None else act.data_ptr(), out.data_ptr(), B, Lx, Ld,
+            sx, sd, int(steps))
+    return out
+
+
+def redc_mod(x, d_mag, steps: int, active=None, inv=None):
+    """Dispatcher: plain version (with `inv`, if given) for CPU tensors, K4
+    for CUDA tensors."""
+    if plain_route(x):
+        return redc_mod_plain(x, d_mag, steps, active=active, inv=inv)
+    return redc_mod_cuda(x, d_mag, steps, active=active)

@@ -21,11 +21,14 @@ The algebra and the widths are the JAX package's:
   and the nearly reduced form built from its cofactors, which the
   rho-descent then finishes at width Ln.
 
-Every `xgcd_coeff_g`, `mod_topdown`, grouped-rho loop and exact tail goes
-through the dispatchers of ops/cuda_group.py: on a CUDA tensor they launch
-the Hopper kernels (K1, K2, K3, KT), on a CPU tensor they run the plain
-torch versions. Reduced forms are unique, so the outputs equal the JAX
-package's and the pure-Python oracle's bit for bit.
+Every `xgcd_coeff_g`, `mod_topdown`, grouped-rho loop, exact tail,
+product (`lb.mag_mul`), exact quotient (`lb.mag_divexact_odd`) and REDC
+(`CG._redc_mod`) goes through the dispatchers of ops/cuda_group.py: on a
+CUDA tensor they launch the Hopper kernels (K1, K2, K3, KT, K5m, K5d, K4),
+on a CPU tensor they run the plain torch versions. On the card no 2-adic
+inverse runs inside compose2: K5d and K4 take their own 16-bit inverses.
+Reduced forms are unique, so the outputs equal the JAX package's and the
+pure-Python oracle's bit for bit.
 
 On a CUDA device, `CG.compose2` with the grouped reduction and no NUCOMP
 replays one captured CUDA graph per batch size (ops/graphs.py), the
@@ -468,13 +471,11 @@ class CG:
     def nudupl2(self, F: BForm, grouped: bool = True) -> BForm:
         return self.compose2(F, F, grouped=grouped)
 
-    def _redc_mod(self, x, d, active, inv):
-        """x * 2^(-16 Lh) mod d, canonical in [0, d), for odd d with
-        inv = d^-1 mod 2^(16 Lh)."""
-        r = rl.redc_pow16(x, d, steps=self.Lh, active=active, inv=inv)
-        _, r = lb.canonicalize_fast(r)
-        ge = lb.mag_cmp(r, d) >= 0
-        return lb.canonicalize_fast(r - torch.where(ge[..., None], d, 0))[1]
+    def _redc_mod(self, x, d, active, inv=None):
+        """x * 2^(-16 Lh) mod d, canonical in [0, d), for odd d: K4 on the
+        card; on the CPU rl.redc_mod, with inv = d^-1 mod 2^(16 Lh) when
+        the caller has it (cuda_group.redc_mod)."""
+        return cuda_group.redc_mod(x, d, self.Lh, active, inv)
 
     def compose2_unreduced(self, F1: BForm, F2: BForm):
         """Everything before the reduction: the unreduced composed
@@ -530,11 +531,18 @@ class CG:
         fits8 = lb.mag_bitlen(d1) <= 120
         one8 = _one_limbs_like(d1, 8)
         d1_8 = torch.where(fits8[..., None], d1[..., :8], one8)
-        # one 2-adic inverse of d1 serves both REDC pipelines and xi below
-        # (d1 is odd: it divides the odd a2)
-        inv_d1 = lb.inv_pow2(d1, Lh)
-        one_h = _one_limbs_like(d1, Lh)
-        inv8 = torch.where(fits8[..., None], inv_d1, one_h)
+        rare = ~fits8 & ~some_id
+        # On the CPU one 2-adic inverse of d1 serves both REDC pipelines and
+        # xi below, and one of g both quotients (d1 is odd: it divides the
+        # odd a2). On the card K4 and K5d take their own 16-bit inverses,
+        # so no inverse is computed there.
+        shared = cuda_group.plain_route(d1)
+        inv_d1 = inv8 = invF = None
+        if shared:
+            inv_d1 = lb.inv_pow2(d1, Lh)
+            one_h = _one_limbs_like(d1, Lh)
+            inv8 = torch.where(fits8[..., None], inv_d1, one_h)
+            invF = torch.where(rare[..., None], inv_d1, one_h)
         rp_m = self._redc_mod(lb.resize(sm, Lh), lb.resize(d1_8, Lh), fits8,
                               inv8)
         g8, eta8 = cuda_group.xgcd_coeff_g(d1_8, rp_m[..., :8].contiguous(),
@@ -546,10 +554,8 @@ class CG:
         # ... and the same pipeline at width Lh on the rare rest (its xgcd
         # leaves its loop at once when no lane needs it; its REDCs run on
         # every lane, and the selects below drop the lanes outside `rare`)
-        rare = ~fits8 & ~some_id
         d1h = torch.where(rare[..., None], lb.resize(d1, Lh),
                           lb.resize(one8, Lh))
-        invF = torch.where(rare[..., None], inv_d1, one_h)
         rpF_m = self._redc_mod(lb.resize(sm, Lh), d1h, rare, invF)
         gF, etaF = cuda_group.xgcd_coeff_g(
             d1h, torch.where(rare[..., None], rpF_m, 0), d1h, 16 * Lh)
@@ -573,7 +579,7 @@ class CG:
                   - 2 * (ss[..., None] * lb.resize(t2, Lm)))
 
         # m2 = a2/g, a1g = a1/g (g odd: divides odd a2 via d1)
-        inv_g = lb.inv_pow2(g, L)
+        inv_g = lb.inv_pow2(g, L) if shared else None
         m2 = lb.mag_divexact_odd(a2, g, L, inv=inv_g)
         a1g = lb.mag_divexact_odd(a1, g, Lh, inv=inv_g)
         m2x2 = lb.mag_shl_bits(m2, 1, L)

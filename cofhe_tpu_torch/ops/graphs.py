@@ -5,11 +5,11 @@ jitted steps (cofhe_tpu/ops/engine.py `JaxEngine._jit_rows`,
 `_phase2_kernel`).
 
 The JAX package compiles each engine step, compose2 included, into one
-device program whose loops stay on the device. The port's compose2 is
-~8.7k eager launches; with KT for the exact tail and REDCs that run on
-every lane it reads no value on the host, so it is one fixed sequence of
-kernels, which a `torch.cuda.CUDAGraph` captures once and replays as one
-launch. Every caller of `CG.compose2` / `nudupl2` (the wNAF and Yao
+device program whose loops stay on the device. The port's eager compose2
+is a sequence of small torch kernels around the Hopper kernels; with KT
+for the exact tail and REDCs that run on every lane it reads no value on
+the host, so it is one fixed sequence of kernels, which a
+`torch.cuda.CUDAGraph` captures once and replays as one launch. Every caller of `CG.compose2` / `nudupl2` (the wNAF and Yao
 ladders, the matmul's chain, ladder and finalization, add, combine, the
 sharded paths) takes the graph with no change of its own.
 
@@ -17,8 +17,8 @@ One `ComposeGraph` per (device, batch shape), held by the CG's
 `ComposeGraphs` and built at first use:
 
 * warm-up: one eager compose2 on a side stream, on the first
-  call's operands, fills limb._CONST, creates the cuFFT plans of
-  limb._poly_mul8 and builds the kernels (its launches count: they run);
+  call's operands, fills limb._CONST and builds the kernels (its
+  launches count: they run);
 * capture: the same compose2 on static input BForms, with this thread's
   launch keys recorded into the graph (cuda_group.capturing_launches). A
   host sync or host-to-device copy inside compose2 fails the capture,

@@ -11,10 +11,12 @@ Port of cofhe_tpu/ops/limb.py. Representation is unchanged:
 Every function returns the same integers as its JAX counterpart; where the
 TPU version was shaped by Mosaic's lowering rules (no gathers, no scans) this
 module uses the torch idiom that needs fewer kernel launches instead — the
-carry resolution is a table-driven prefix composition, dynamic limb shifts
-are `gather`s, products go through a float64 FFT of 8-bit limbs and exact
-division uses a 2-adic Newton inverse. Outputs are canonical integers, so
-the route does not show in them.
+carry resolution is a table-driven prefix composition and dynamic limb
+shifts are `gather`s. Products and exact quotients are kernels on the card
+(K5m, K5d: cuda_group); their plain versions here, which a CPU tensor
+takes, go through a float64 FFT of 8-bit limbs and a 2-adic Newton
+inverse. Outputs are canonical integers, so the route does not show in
+them.
 """
 
 from __future__ import annotations
@@ -329,13 +331,22 @@ def _poly_mul8(a8, b8):
     return torch.round(c).to(I32)
 
 
-def mag_mul(ma, mb, L_out: int | None = None):
-    """Magnitude product, (..., L_out) canonical (mod 2^(16 L_out))."""
+def mag_mul_plain(ma, mb, L_out: int | None = None):
+    """K5m's plain version: the magnitude product of canonical limbs,
+    (..., L_out) canonical (mod 2^(16 L_out)), by a float64 FFT."""
     La, Lb = ma.shape[-1], mb.shape[-1]
     if L_out is None:
         L_out = La + Lb
     c8 = _poly_mul8(_to8(ma), _to8(mb))
     return canonicalize_nonneg(resize(_from8(c8), L_out))
+
+
+def mag_mul(ma, mb, L_out: int | None = None):
+    """Magnitude product, (..., L_out) canonical (mod 2^(16 L_out)): K5m on
+    a CUDA tensor, mag_mul_plain on a CPU tensor (cuda_group.mag_mul)."""
+    from . import cuda_group  # cuda_group imports this module
+
+    return cuda_group.mag_mul(ma, mb, L_out)
 
 
 def mag_sqr(ma, L_out: int | None = None):
@@ -512,30 +523,43 @@ def _sub_mod(a, b):
 
 def inv_pow2(y, n: int):
     """y^-1 mod 2^(16 n) for ODD canonical y (2-adic Newton iteration:
-    inv <- inv - inv * (y * inv - 1), doubling the correct limbs)."""
+    inv <- inv - inv * (y * inv - 1), doubling the correct limbs), in torch
+    ops only: the plain versions of K5d and K4 and compose2's CPU route
+    use it; no card path calls it."""
     yv = resize(y, n)
     inv = modinv16(yv[..., 0])[..., None]
     k = 1
     while k < n:
         k2 = min(2 * k, n)
         inv = resize(inv, k2)
-        t = mag_mul(yv[..., :k2], inv, k2)     # ≡ 1 mod 2^(16 k)
+        t = mag_mul_plain(yv[..., :k2], inv, k2)  # ≡ 1 mod 2^(16 k)
         e = F.pad(t[..., 1:], (1, 0))          # t - 1: limb 0 of t is 1
-        inv = _sub_mod(inv, mag_mul(inv, e, k2))
+        inv = _sub_mod(inv, mag_mul_plain(inv, e, k2))
         k = k2
     return inv
 
 
-def mag_divexact_odd(x, y, L_out: int, inv=None):
-    """Exact division x / y for ODD y with y | x; returns the (..., L_out)
-    quotient magnitude. Equals the JAX package's LSB-first Hensel digits:
-    both are x * y^-1 mod 2^(16 L_out) (L_out <= x's width). `inv`, when
-    the caller already has it, is y^-1 mod 2^(16 n) for some n >= L_out."""
+def mag_divexact_odd_plain(x, y, L_out: int, inv=None):
+    """K5d's plain version: x * y^-1 mod 2^(16 L_out) for ODD y (L_out <=
+    x's width), the exact quotient x / y when y | x, in torch ops only.
+    Equals the JAX package's LSB-first Hensel digits. `inv`, when the
+    caller already has it, is y^-1 mod 2^(16 n) for some n >= L_out."""
     if L_out > x.shape[-1]:
         raise ValueError(f"L_out {L_out} exceeds the dividend width {x.shape[-1]}")
     if inv is None:
         inv = inv_pow2(y, L_out)
-    return mag_mul(resize(x, L_out), resize(inv, L_out), L_out)
+    return mag_mul_plain(resize(x, L_out), resize(inv, L_out), L_out)
+
+
+def mag_divexact_odd(x, y, L_out: int, inv=None):
+    """Exact division x / y for ODD y with y | x; returns the (..., L_out)
+    quotient magnitude (x * y^-1 mod 2^(16 L_out), L_out <= x's width):
+    K5d on a CUDA tensor, which takes its own 16-bit inverse and ignores
+    `inv`; mag_divexact_odd_plain on a CPU tensor (cuda_group.
+    mag_divexact_odd)."""
+    from . import cuda_group  # cuda_group imports this module
+
+    return cuda_group.mag_divexact_odd(x, y, L_out, inv=inv)
 
 
 def _shl8(mag, L: int):

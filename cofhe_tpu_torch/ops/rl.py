@@ -457,17 +457,31 @@ def redc_pow16(x, d_mag, steps: int, active=None, inv=None):
     package's limb-by-limb REDC modulo d (both land in [0, 2d) for the
     x < 2^(16*steps) the compose passes), in ~1/100 of its eager ops.
     `inv`, when the caller already has it, is d^-1 mod 2^(16*steps). Lanes
-    outside `active` return garbage. The reduction runs on every lane and
-    reads no value on the host, so a CUDA graph can capture it."""
+    outside `active` get q = 0: floor(x / 2^(16*steps)). The reduction
+    runs on every lane and reads no value on the host. Torch ops only (the
+    core of K4's plain version, redc_mod)."""
     Lx = x.shape[-1]
     Ld = d_mag.shape[-1]
     _, xm = lb.canonicalize_fast(x)
     if inv is None:
         inv = lb.inv_pow2(d_mag, steps)
     ninv = lb._negate_mag_fast(inv)
-    q = lb.mag_mul(lb.resize(xm, steps), ninv, steps)
+    q = lb.mag_mul_plain(lb.resize(xm, steps), ninv, steps)
     if active is not None:
         q = torch.where(active[..., None], q, 0)
     Ly = max(Lx, steps + Ld) + 1
-    y = lb.canonicalize_nonneg(lb.resize(xm, Ly) + lb.mag_mul(q, d_mag, Ly))
+    y = lb.canonicalize_nonneg(lb.resize(xm, Ly) + lb.mag_mul_plain(q, d_mag, Ly))
     return lb.resize(y[..., steps:], Lx)
+
+
+def redc_mod(x, d_mag, steps: int, active=None, inv=None):
+    """K4's plain version: x * 2^(-16*steps) mod d, canonical in [0, d) at
+    x's width, for ODD canonical d (Ld <= Lx limbs) and x < 2^(16*steps)
+    (then redc_pow16 lands in [0, d] and one subtraction of d finishes).
+    Lanes outside `active` get floor(x / 2^(16*steps)) reduced once by d.
+    `inv` as for redc_pow16."""
+    r = redc_pow16(x, d_mag, steps, active=active, inv=inv)
+    _, r = lb.canonicalize_fast(r)
+    ge = lb.mag_cmp(r, d_mag) >= 0
+    d = lb.resize(d_mag, r.shape[-1])
+    return lb.canonicalize_fast(r - torch.where(ge[..., None], d, 0))[1]

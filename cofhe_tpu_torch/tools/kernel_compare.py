@@ -6,7 +6,8 @@ directory, on the operands the main path really passes, on one CUDA card.
 DIR holds the earlier sources of the kernels (and warp_limbs.cuh) with
 this checkout's C entry points (cuda_group._ARGTYPES); for example an
 unpacked `git archive <commit> cofhe_tpu_torch/csrc`. A kernel whose
-source DIR lacks (KT before it existed) is compared with nothing. The earlier K1 is
+source DIR lacks (KT before it existed) is compared with nothing, and so
+are K5m, K5d and K4, which this script does not call. The earlier K1 is
 the 13-divstep kernel: it gets its loop cap in 13-step groups (a cap that
 also covers any kernel of longer groups, whose loop ends once g is zero),
 and its trips count 13 divsteps a group. Where an earlier kernel is the
@@ -57,8 +58,8 @@ class Baseline:
     def __init__(self, csrc: str, cgp, fail):
         self.csrc, self.cgp, self.fail, self.fns, self.procs = csrc, cgp, fail, {}, {}
         self.out_dir = os.path.join(cgp.BUILD_DIR, "baseline")
-        self.kernels = [n for n in cgp.KERNELS
-                        if os.path.exists(os.path.join(csrc, f"{n}.cu"))]
+        self.kernels = [n for n in cgp.KERNELS if n in WRAPPER
+                        and os.path.exists(os.path.join(csrc, f"{n}.cu"))]
 
     def start(self) -> None:
         os.makedirs(self.out_dir, exist_ok=True)

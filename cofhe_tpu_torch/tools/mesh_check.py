@@ -37,6 +37,7 @@ CPU thread.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import pickle
 import socket
@@ -50,7 +51,8 @@ OPS = ("add", "matmul", "combine")
 # the kernel dispatchers of ops/cuda_group.py, by kernel name
 DISPATCHERS = {"xgcd_coeff_g": "xgcd_coeff_g", "mod_topdown": "mod_topdown",
                "reduce2_grouped": "reduce2_grouped_loop",
-               "reduce_exact": "reduce_exact"}
+               "reduce_exact": "reduce_exact", "mag_mul": "mag_mul",
+               "divexact_odd": "mag_divexact_odd", "redc_mod": "redc_mod"}
 
 
 class MeshCheckError(RuntimeError):
@@ -120,9 +122,10 @@ def make_inputs(path: str) -> None:
 
 
 def count_calls(cuda_group, graphs) -> dict:
-    """Count the kernels run by 'kernel@batch', apart from cuda_group's own
-    counters: each call of a dispatcher outside a graph capture (one launch
-    on a card, the plain version on the CPU) and, for each replay of a
+    """Count the kernels run by 'kernel@batch' (batch: the rows of the
+    first operand), apart from cuda_group's own counters: each call of a
+    dispatcher outside a graph capture (one launch on a card, the plain
+    version on the CPU) and, for each replay of a
     compose2 graph, each kernel it captured. On a card the counts must
     equal cuda_group.LAUNCHES; `.clear()` the dict to start over."""
     import torch
@@ -137,7 +140,7 @@ def count_calls(cuda_group, graphs) -> dict:
     for name, attr in DISPATCHERS.items():
         def counted(*a, _orig=getattr(cuda_group, attr), _name=name, **kw):
             if not (a[0].is_cuda and torch.cuda.is_current_stream_capturing()):
-                add(f"{_name}@{a[0].shape[0]}")
+                add(f"{_name}@{math.prod(a[0].shape[:-1])}")
             return _orig(*a, **kw)
 
         setattr(cuda_group, attr, counted)

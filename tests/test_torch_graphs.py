@@ -11,6 +11,9 @@ against eager compose2.
   tensor value on the host: every tensor it makes is a
   subclass whose __bool__ / item / tolist / numpy / boolean indexing
   raise, so a sync that a capture on the card would refuse shows here.
+  On the card's route (no shared 2-adic inverse) it calls K5m 7 times,
+  K5d 4 times and K4 4 times and limb.inv_pow2 never, and gives the JAX
+  package's forms.
 * ComposeGraph refuses a CPU device; the launch keys a capture records
   are not counted until a replay counts them.
 
@@ -140,18 +143,32 @@ def _guarded(x):
     return x.as_subclass(_NoSync) if isinstance(x, torch.Tensor) else x
 
 
-@contextlib.contextmanager
-def _opaque_kernels(monkeypatch):
-    """The four kernel dispatchers run their plain versions on plain
-    tensors (on the card they are single launches)."""
-    for name in ("xgcd_coeff_g", "mod_topdown", "reduce2_grouped_loop", "reduce_exact"):
-        orig = getattr(cuda_group, name)
+KERNEL_DISPATCHERS = ("xgcd_coeff_g", "mod_topdown", "reduce2_grouped_loop",
+                      "reduce_exact", "mag_mul", "mag_divexact_odd", "redc_mod")
 
-        def call(*args, _orig=orig, **kw):
-            return _guarded(_orig(*(_plain(a) for a in args), **kw))
+
+@contextlib.contextmanager
+def _opaque_kernels(monkeypatch, calls=None):
+    """The seven kernel dispatchers run their plain versions on plain
+    tensors (on the card they are single launches); `calls` counts the
+    dispatcher calls made outside another one (`calls["inside"]` > 0
+    while one runs)."""
+    calls = collections.Counter() if calls is None else calls
+    for name in KERNEL_DISPATCHERS:
+        orig = getattr(cuda_group, name + "_plain")
+
+        def call(*args, _orig=orig, _name=name, **kw):
+            if not calls["inside"]:
+                calls[_name] += 1
+            calls["inside"] += 1
+            try:
+                return _guarded(_orig(*(_plain(a) for a in args),
+                                      **{k: _plain(v) for k, v in kw.items()}))
+            finally:
+                calls["inside"] -= 1
 
         monkeypatch.setattr(cuda_group, name, call)
-    yield
+    yield calls
 
 
 def test_compose2_reads_nothing_on_the_host(toy_hsm, monkeypatch):
@@ -174,6 +191,42 @@ def test_compose2_reads_nothing_on_the_host(toy_hsm, monkeypatch):
         _guarded(p1).a[_guarded(p1).b_sign > 0]
     assert isinstance(out.a, _NoSync)
     assert _tuples(bform_to_forms(BForm(*(_plain(x) for x in out)))) == want
+
+
+def test_compose2_card_route_launches_the_kernels_and_no_inverse(toy_hsm, monkeypatch):
+    """The card's call plan, on the CPU: with the route compose2 takes for
+    a CUDA tensor (cuda_group.plain_route false: no shared 2-adic inverse)
+    and every kernel an opaque call to its plain version, one compose2
+    calls K5m 7 times, K5d 4 times and K4 4 times, calls limb.inv_pow2
+    never outside a kernel, reads nothing on the host and gives the JAX
+    package's reduced forms."""
+    jcg, pcg, L = _cgs(toy_hsm)
+    rng = random.Random(7)
+    pool = [nupow(toy_hsm.h, rng.randrange(1, 1 << 60)) for _ in range(8)]
+    f1 = [pool[rng.randrange(8)] for _ in range(16)]
+    f2 = [pool[rng.randrange(8)] for _ in range(16)]
+    f1[0] = identity_form(toy_hsm.Delta)
+    f1[1] = f2[1]  # d1 = a: the rare REDC pipeline is live
+    f1[2] = toy_hsm.power_of_f(3)
+    want = _jax_out(jax.jit(jcg.compose2), jbform_from_forms(f1, L),
+                    jbform_from_forms(f2, L))
+    inverses = []
+    orig_inv = cuda_group.lb.inv_pow2
+    monkeypatch.setattr(cuda_group, "plain_route", lambda t: False)
+    with _opaque_kernels(monkeypatch) as calls:
+        def inv_spy(*a, **k):
+            if not calls["inside"]:
+                inverses.append(a[0].shape)
+            return orig_inv(*a, **k)
+
+        monkeypatch.setattr(cuda_group.lb, "inv_pow2", inv_spy)
+        out = pcg.compose2_eager(_guarded(bform_from_forms(f1, L, "cpu")),
+                                 _guarded(bform_from_forms(f2, L, "cpu")))
+    assert isinstance(out.a, _NoSync)
+    assert _tuples(bform_to_forms(BForm(*(_plain(x) for x in out)))) == want
+    assert inverses == []
+    assert (calls["mag_mul"], calls["mag_divexact_odd"], calls["redc_mod"]) == (7, 4, 4)
+    assert calls["reduce2_grouped_loop"] == calls["reduce_exact"] == calls["mod_topdown"] == 1
 
 
 # --------------------------------------------------- graphs and launches
@@ -270,9 +323,11 @@ def test_replays_count_the_captured_launches_on_card(cuda_device):
     gcg.nudupl2(b)  # warm-up, capture, first replay
     (graph,) = gcg.compose_graphs.graphs.values()
     kinds = collections.Counter(k[0] for k in graph.keys)
-    # two first-gcd passes where the narrow width is below L, then W=8, Lh
+    # two first-gcd passes where the narrow width is below L, then W=8, Lh;
+    # seven products, four exact quotients and four REDCs
     assert kinds == {"xgcd_coeff_g": 4 if gcg.Lxn < gcg.L else 3, "mod_topdown": 1,
-                     "reduce2_grouped": 1, "reduce_exact": 1}
+                     "reduce2_grouped": 1, "reduce_exact": 1, "mag_mul": 7,
+                     "divexact_odd": 4, "redc_mod": 4}
     for _ in range(3):
         before = dict(cuda_group.LAUNCHES)
         by_key = dict(cuda_group.LAUNCHES_BY_KEY)

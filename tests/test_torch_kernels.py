@@ -10,6 +10,8 @@ versions.
   tests/test_pallas.py:50-52), plus Python's %.
 * K3 `reduce2_grouped`: checked through compose2 in test_torch_forms2.py
   and against the JAX loop in test_torch_wide.py; here only its card test.
+* K5m, K5d and K4: their plain versions are held to the JAX package in
+  test_torch_limb_kernels.py; here only their card test.
 
 The wide schedules K2 and K3 compute (rl.mod_topdown28,
 forms2.grouped_rho_loop_wide) are held against the JAX package in
@@ -123,10 +125,11 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card(cuda_device):
-    """K1, K2 and K3 on the card against their plain versions on the same
-    card tensors, at the main path's widths with a ragged batch; K2 and K3
-    also against the earlier plain versions (rl.mod_topdown,
-    grouped_rho_loop)."""
+    """K1, K2, K3, K5m, K5d and K4 on the card against their plain
+    versions on the same card tensors, at the main path's widths with a
+    ragged batch; K2 and K3 also against the earlier plain versions
+    (rl.mod_topdown, grouped_rho_loop), K2, K5m, K5d and K4 against Python
+    integers."""
     from cofhe_tpu_torch.core.cl_hsm2k import CLHSM2k
     from cofhe_tpu_torch.ops.engine import TorchEngine
     from cofhe_tpu_torch.ops.forms import bform_from_forms
@@ -166,3 +169,39 @@ def test_kernels_match_plain_on_card(cuda_device):
     # exact tail the 2^12-budget loop's forms
     _same(raw, cuda_group.reduce2_grouped_loop_plain(*args))
     _same(cg._tail(*raw), cg._tail(*grouped_rho_loop(*args)))
+
+    # K5m, K5d and K4 at compose2's widths (sec=128, k=128)
+    for La, Lb, Lo in ((72, 72, 144), (72, 144, 200), (200, 72, 264), (136, 136, 264)):
+        av = [rng.getrandbits(16 * La) for _ in range(77)]
+        bv = [rng.getrandbits(16 * Lb) for _ in range(77)]
+        a = torch.from_numpy(lb.ints_to_limbs(av, La)).to(cuda_device)
+        b = torch.from_numpy(lb.ints_to_limbs(bv, Lb)).to(cuda_device)
+        got = cuda_group.mag_mul_cuda(a, b, Lo)
+        _same([got], [cuda_group.mag_mul_plain(a, b, Lo)])
+        assert lb.limbs_to_ints(got) == [u * v % (1 << 16 * Lo) for u, v in zip(av, bv)]
+        # leading shapes that broadcast, as the plain version takes them
+        a3, b1 = a.reshape(7, 11, La), b[:11]
+        _same([cuda_group.mag_mul_cuda(a3, b1, Lo)], [cuda_group.mag_mul_plain(a3, b1, Lo)])
+    for Lx, Ly, Lo in ((144, 144, 72), (144, 72, 144), (264, 264, 144)):
+        yv = [rng.getrandbits(16 * Ly) | 1 for _ in range(77)]
+        xv = [rng.getrandbits(16 * Lx) for _ in range(77)]
+        x = torch.from_numpy(lb.ints_to_limbs(xv, Lx)).to(cuda_device)
+        y = torch.from_numpy(lb.ints_to_limbs(yv, Ly)).to(cuda_device)
+        got = cuda_group.mag_divexact_odd_cuda(x, y, Lo)
+        _same([got], [cuda_group.mag_divexact_odd_plain(x, y, Lo)])
+        mod = 1 << 16 * Lo
+        assert lb.limbs_to_ints(got) == [u * pow(v, -1, mod) % mod for u, v in zip(xv, yv)]
+        x3, y1 = x.reshape(7, 11, Lx), y[:1]
+        _same([cuda_group.mag_divexact_odd_cuda(x3, y1, Lo)],
+              [cuda_group.mag_divexact_odd_plain(x3, y1, Lo)])
+    for Lx, Ld in ((72, 72), (8, 8)):
+        dv = [rng.getrandbits(16 * Ld) | 1 for _ in range(77)]
+        xv = [rng.getrandbits(16 * Lx) for _ in range(77)]
+        act = [i % 4 != 0 for i in range(77)]
+        x = torch.from_numpy(lb.ints_to_limbs(xv, Lx)).to(cuda_device)
+        d = torch.from_numpy(lb.ints_to_limbs(dv, Ld)).to(cuda_device)
+        active = torch.tensor(act, device=cuda_device)
+        got = cuda_group.redc_mod_cuda(x, d, 72, active)
+        _same([got], [cuda_group.redc_mod_plain(x, d, 72, active)])
+        assert lb.limbs_to_ints(got) == [u * pow(2, -16 * 72, v) % v if a else 0
+                                         for u, v, a in zip(xv, dv, act)]
