@@ -10,9 +10,16 @@
    integers and GMP), timing both; K2 also on the edge cases of its wide
    digit. K5m (products), K5d (exact quotients) and K4 (REDC into [0, d))
    at every shape of compose2, with edge cases at 128 lanes (zero and
-   all-0xFFFF operands, y = 1, y of one limb, quotients that fill L_out,
-   d = 1, d of one limb, inactive lanes, x with its top limb set) and K5m
-   at widths 1 to 288 with L_out below, at and above La + Lb. KT, the exact tail, runs on K3's
+   all-0xFFFF operands, y = 1, y of one limb padded to its width, quotients
+   that fill L_out, d = 1, d of one limb, inactive lanes, x with its top
+   limb set; divisors of different significant widths, and active and
+   inactive K4 rows, in one block of four warps; K4 also with every lane
+   inactive, as compose2's rare-lane REDCs run), K5m at widths 1 to 288
+   with L_out below, at and above La + Lb, and K5d and K4 at widths and
+   step counts that are not multiples of a thread's limbs (1, 31, 33, 143,
+   K4 also with x wider than its steps). The build's ptxas report gives
+   the registers, stack frame and spills of each K5d and K4 instance and
+   which of them compose2 launches. KT, the exact tail, runs on K3's
    outputs of real compose2 operands (self-composes, inverse pairs and
    powers of f, which drop deep into the tail), must give GMP's composes,
    and on edge cases (b = -a, a = c with b < 0, a > c, reduced forms, and
@@ -111,6 +118,7 @@ import json
 import math
 import os
 import random
+import re
 import socket
 import subprocess
 import sys
@@ -188,6 +196,11 @@ K5M_SHAPES = ((72, 72, 144), (72, 144, 144), (72, 144, 200), (200, 72, 264),
               (136, 136, 264))
 K5D_SHAPES = ((144, 144, 72), (144, 72, 144), (144, 72, 72), (264, 264, 144))
 K4_SHAPES, K4_STEPS = ((72, 72), (8, 8)), 72
+# K5d and K4 at widths and step counts that are not multiples of a thread's
+# limbs (NPT = ceil(width / 32)): K5d (Lx, Ly, L_out) and K4 (Lx, Ld, steps),
+# K4 also with Lx > steps
+K5D_EDGE_SHAPES = ((1, 1, 1), (31, 31, 31), (33, 8, 33), (143, 143, 143), (288, 288, 288))
+K4_EDGE_SHAPES = ((1, 1, 1), (31, 31, 31), (33, 8, 33), (143, 143, 143), (100, 8, 33))
 # K5m's edge shapes: widths 1 to 288, L_out below, at and above La + Lb
 K5M_EDGE_SHAPES = ((1, 1, 1), (1, 1, 2), (1, 1, 3), (8, 8, 8), (8, 8, 16),
                    (8, 8, 20), (72, 72, 72), (72, 72, 150), (144, 144, 144),
@@ -550,19 +563,22 @@ def k5d_want(lb, x, y, Lo, label):
 
 
 def k4_want(lb, x, d, steps, active, label):
-    """x 2^(-16 steps) mod d on active lanes; floor(x / 2^(16 steps))
-    reduced once by d on the others."""
+    """R = (x + Q d) / 2^(16 steps) cut to x's width Lx, Q = -x d^-1 mod
+    2^(16 steps) on active lanes and 0 on the others, less d once if R >=
+    d: x 2^(-16 steps) mod d on active lanes when Lx <= steps (checked),
+    floor(x / 2^(16 steps)) reduced once by d on the others."""
     act = [True] * x.shape[0] if active is None else active.cpu().tolist()
+    Lx, mod = x.shape[1], 1 << (16 * steps)
     out = []
     for i, (u, v, a) in enumerate(zip(lb.limbs_to_ints(x.cpu()), lb.limbs_to_ints(d.cpu()),
                                       act)):
-        if a:
-            if v % 2 == 0:
-                fail(f"{label} lane {i}: an even modulus on an active lane")
-            out.append(u * pow(2, -16 * steps, v) % v)
-        else:
-            r = u >> (16 * steps)
-            out.append(r - v if r >= v else r)
+        if a and v % 2 == 0:
+            fail(f"{label} lane {i}: an even modulus on an active lane")
+        q = -u * pow(v, -1, mod) % mod if a else 0
+        r = ((u + q * v) >> (16 * steps)) % (1 << (16 * Lx))
+        out.append(r - v if r >= v else r)
+        if a and Lx <= steps and out[-1] != u * pow(2, -16 * steps, v) % v:
+            fail(f"{label} lane {i}: R - d is not x 2^(-16 steps) mod d")
     return out
 
 
@@ -610,8 +626,9 @@ def check_k5m(torch, cgp, lb, rng, B, La, Lb, Lo, edge=False, timing=True):
 def k5d_operands(rng, B, Lx, Ly, Lo, edge: bool):
     """Odd y (Ly limbs) and x (Lx limbs): exact multiples q y on odd lanes,
     any x on even ones (the contract is x y^-1 mod 2^(16 L_out)); with
-    edge the first lanes hold y = 1, x = 0, y of one limb, all-0xFFFF y,
-    and quotients that fill L_out."""
+    edge the first lanes hold y = 1, y of one limb padded to Ly, all-0xFFFF
+    y and a y of half the width in one block of four rows (one warp each),
+    x = 0, all-0xFFFF x, and quotients that fill L_out."""
     xs, ys = [], []
     for i in range(B):
         y = rng.getrandbits(rng.randrange(1, 16 * Ly + 1)) | 1
@@ -625,15 +642,17 @@ def k5d_operands(rng, B, Lx, Ly, Lo, edge: bool):
     if edge:
         full_q, full_x = (1 << 16 * Lo) - 1, (1 << 16 * Lx) - 1
         small = rng.getrandbits(15) | (1 << 15) | 1
-        cases = [(xs[0], 1), (0, ys[1]), (0, 1), (full_q, 1), (full_q * small % (full_x + 1), small),
-                 (xs[5] * small % (full_x + 1), small), (xs[6], 3), (xs[7], (1 << 16 * Ly) - 1),
-                 (full_x, (1 << 16 * (Ly - 1)) + 1), (full_x, small)]
+        half = ys[3] % (1 << 8 * Ly) | (1 << (8 * Ly - 1)) | 1
+        cases = [(xs[0], 1), (full_x, small), (xs[2], (1 << 16 * Ly) - 1), (xs[3], half),
+                 (0, ys[4]), (0, 1), (full_q, 1), (full_q * small % (full_x + 1), small),
+                 (xs[8] * small % (full_x + 1), small), (xs[9], 3),
+                 (full_x, (1 << 16 * Ly) - 1), (full_x, (1 << 16 * (Ly - 1)) | 1)]
         for i, (x, y) in enumerate(cases[:B]):
             xs[i], ys[i] = x, y
     return xs, ys
 
 
-def check_k5d(torch, cgp, lb, rng, B, Lx, Ly, Lo, edge=False):
+def check_k5d(torch, cgp, lb, rng, B, Lx, Ly, Lo, edge=False, timing=True):
     """K5d at (Lx, Ly) -> L_out on B synthetic lanes: bit-exact against its
     plain version and x y^-1 mod 2^(16 L_out) (the exact quotient on the
     lanes where y | x)."""
@@ -649,6 +668,8 @@ def check_k5d(torch, cgp, lb, rng, B, Lx, Ly, Lo, edge=False):
     if vals != k5d_want(lb, x, y, Lo, label) or any(
             v != (u // w) % (1 << 16 * Lo) for v, u, w in zip(vals, xs, ys) if u % w == 0):
         fail(f"{label}: not x y^-1 mod 2^(16 L_out) or not the exact quotient")
+    if not timing:
+        return None
     ms = timed(torch, lambda: cgp.mag_divexact_odd_cuda(x, y, Lo), TIMING_REPS)
     plain_ms = timed(torch, lambda: cgp.mag_divexact_odd_plain(x, y, Lo), 1,
                      warm=False) if B == KERNEL_B else float("nan")
@@ -664,8 +685,9 @@ def k4_operands(rng, B, Lx, Ld, edge: bool):
     """Canonical x (Lx limbs), odd d (Ld limbs) and the active mask: 3 in 4
     lanes active; an inactive lane has d = 1 (as compose2's masks leave
     it) or a random odd d. With edge the first lanes hold d = 1, d of one
-    limb, all-0xFFFF d, x with its top limb set, x = 0, x = d - 1, x = d,
-    and inactive lanes with x's top limb set."""
+    limb padded to Ld, all-0xFFFF d, all-0xFFFF x, x with its top limb set,
+    x = 0, x = d - 1, x = d, with active and inactive lanes and divisors of
+    different widths in each block of four rows (one warp each)."""
     xs, ds, act = [], [], []
     for i in range(B):
         a = rng.random() < 0.75
@@ -676,30 +698,40 @@ def k4_operands(rng, B, Lx, Ld, edge: bool):
         top = (0xFFFF << 16 * (Lx - 1)) | rng.getrandbits(16 * (Lx - 1))
         one = rng.getrandbits(15) | (1 << 15) | 1
         dmax = (1 << 16 * Ld) - 1
-        cases = [(xs[0], 1, True), (xs[1], one, True), (xs[2], dmax, True), (top, ds[3] | 1, True),
-                 (0, ds[4] | 1, True), ((ds[5] | 1) - 1, ds[5] | 1, True),
-                 (min(ds[6] | 1, (1 << 16 * Lx) - 1), ds[6] | 1, True), (top, dmax, True),
-                 (xs[8], 1, False), (top, ds[9] | 1, False), (top, 1, False), (0, one, False)]
+        xmax = (1 << 16 * Lx) - 1
+        cases = [(xs[0], 1, True), (top, ds[1] | 1, False), (xs[2], dmax, True), (top, one, False),
+                 (xs[4], one, True), (top, ds[5] | 1, True), (xs[6], 1, False),
+                 (0, ds[7] | 1, True), ((ds[8] | 1) - 1, ds[8] | 1, True),
+                 (min(ds[9] | 1, xmax), ds[9] | 1, True), (top, dmax, True), (top, 1, False),
+                 (xmax, dmax, True), (xmax, one, False), (xmax, 1, True), (0, one, False)]
         for i, (x, d, a) in enumerate(cases[:B]):
             xs[i], ds[i], act[i] = x, d, a
     return xs, ds, act
 
 
-def check_k4(torch, cgp, lb, rng, B, Lx, Ld, steps=K4_STEPS, edge=False):
+def check_k4(torch, cgp, lb, rng, B, Lx, Ld, steps=K4_STEPS, edge=False, timing=True,
+             masked=False):
     """K4 at (Lx, Ld) with `steps` on B synthetic lanes: bit-exact against
     its plain version and x 2^(-16 steps) mod d (floor(x / 2^(16 steps))
-    reduced once by d on inactive lanes)."""
+    reduced once by d on inactive lanes; k4_want for Lx > steps). With
+    `masked` every lane is inactive, as compose2's `rare` REDCs leave
+    almost every lane."""
     xs, ds, act = k4_operands(rng, B, Lx, Ld, edge)
+    if masked:
+        act = [False] * B
     x, d = _limbs(torch, lb, xs, Lx), _limbs(torch, lb, ds, Ld)
     active = torch.tensor(act, dtype=torch.bool, device="cuda")
     got = cgp.redc_mod_cuda(x, d, steps, active)
     torch.cuda.synchronize()
-    label = f"K4 Lx={Lx} Ld={Ld} steps={steps} B={B}{' with edge cases' if edge else ''}"
+    label = (f"K4 Lx={Lx} Ld={Ld} steps={steps} B={B}{' with edge cases' if edge else ''}"
+             f"{', every lane masked' if masked else ''}")
     err = max_abs_diff(torch, [got], [cgp.redc_mod_plain(x, d, steps, active)])
     if err:
         fail(f"{label} differs from its plain version (max {err})")
     if lb.limbs_to_ints(got.cpu()) != k4_want(lb, x, d, steps, active, label):
-        fail(f"{label} differs from x 2^(-16 steps) mod d on Python integers")
+        fail(f"{label} differs from (x + Q d) / 2^(16 steps) less d once on Python integers")
+    if not timing:
+        return None
     ms = timed(torch, lambda: cgp.redc_mod_cuda(x, d, steps, active), TIMING_REPS)
     plain_ms = timed(torch, lambda: cgp.redc_mod_plain(x, d, steps, active), 1,
                      warm=False) if B == KERNEL_B else float("nan")
@@ -713,9 +745,13 @@ def check_k4(torch, cgp, lb, rng, B, Lx, Ld, steps=K4_STEPS, edge=False):
 
 def check_limb_kernels(torch, cgp, lb, rng):
     """K5m, K5d and K4 at compose2's shapes on 16384, 1001 and 128
-    synthetic lanes (edge cases at 128), and K5m at its edge shapes.
-    Returns {kernel: {(shape, B): numbers}}."""
+    synthetic lanes (edge cases at 128), and each at its edge shapes.
+    Returns {kernel: {(shape, B): numbers}}. The checks added after the
+    first ones draw from their own generator, so that `rng` reaches the
+    later phases as it did before them (the same forms in a tree and its
+    parent)."""
     out = {"mag_mul": {}, "divexact_odd": {}, "redc_mod": {}}
+    own = random.Random(SEED + 9)
     for B in (KERNEL_B, RAGGED_B, SMALL_B):
         edge = B == SMALL_B
         for sh in K5M_SHAPES:
@@ -724,11 +760,20 @@ def check_limb_kernels(torch, cgp, lb, rng):
             out["divexact_odd"][(sh, B)] = check_k5d(torch, cgp, lb, rng, B, *sh, edge=edge)
         for sh in K4_SHAPES:
             out["redc_mod"][(sh, B)] = check_k4(torch, cgp, lb, rng, B, *sh, edge=edge)
+            out["redc_mod"][(sh + ("masked",), B)] = check_k4(torch, cgp, lb, own, B, *sh,
+                                                              edge=edge, masked=True)
     for sh in K5M_EDGE_SHAPES:
         check_k5m(torch, cgp, lb, rng, SMALL_B, *sh, edge=True, timing=False)
     log(f"K5m edge shapes (La, Lb, L_out) {list(K5M_EDGE_SHAPES)} at {SMALL_B} lanes: "
         f"bit-exact vs plain and a * b mod 2^(16 L_out) (zero operands, all-0xFFFF "
         f"limbs, 1, top limbs alone)")
+    for sh in K5D_EDGE_SHAPES:
+        check_k5d(torch, cgp, lb, own, SMALL_B, *sh, edge=True, timing=False)
+    for Lx, Ld, steps in K4_EDGE_SHAPES:
+        check_k4(torch, cgp, lb, own, SMALL_B, Lx, Ld, steps, edge=True, timing=False)
+    log(f"K5d edge shapes (Lx, Ly, L_out) {list(K5D_EDGE_SHAPES)} and K4 edge shapes "
+        f"(Lx, Ld, steps) {list(K4_EDGE_SHAPES)} at {SMALL_B} lanes, with edge cases: "
+        f"bit-exact vs plain and Python integers")
     return out
 
 
@@ -1294,6 +1339,13 @@ def _stats(t) -> str:
     return f"mean {float(t.float().mean()):.2f} max {int(t.max())}"
 
 
+def significant_limbs(torch, t):
+    """1 + the index of each row's top nonzero limb (low 16 bits), 0 for zero."""
+    t = t.reshape(-1, t.shape[-1])
+    pos = torch.arange(1, t.shape[-1] + 1, device=t.device)
+    return (((t & 0xFFFF) != 0).long() * pos).amax(dim=1)
+
+
 def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
     """One kernel at one recorded main-path shape and batch: checks, trip
     counts, time and bound. Returns its JSON entry."""
@@ -1428,7 +1480,9 @@ def limb_row(torch, cgp, lb, row, key, args):
         fn = lambda: cgp.mag_divexact_odd_cuda(x, y, Lo)  # noqa: E731
         want = k5d_want(lb, x, y, Lo, row["name"])
         bnd = k5d_bound(B, y.shape[-1], Lo)
-        trips = f"{Lo} digit steps"
+        npt = -(-Lo // 32)
+        trips = (f"{Lo} digits in {-(-Lo // npt)} block steps; y's significant "
+                 f"limbs {_stats(significant_limbs(torch, y[..., :Lo]))}")
     else:
         x, d, steps, active = args
         got = cgp.redc_mod_cuda(x, d, steps, active)
@@ -1436,7 +1490,12 @@ def limb_row(torch, cgp, lb, row, key, args):
         fn = lambda: cgp.redc_mod_cuda(x, d, steps, active)  # noqa: E731
         want = k4_want(lb, x, d, steps, active, row["name"])
         bnd = k4_bound(B, W, d.shape[1], steps)
-        trips = f"{steps} steps, {B if active is None else int(active.sum())} active lanes"
+        npt = -(-(max(W, steps + d.shape[1]) + 1) // 32)
+        nd = significant_limbs(torch, d if active is None else d[active])
+        trips = (f"{steps} digits in {-(-steps // npt)} block steps, "
+                 f"{B if active is None else int(active.sum())} active lanes; d's "
+                 f"significant limbs on them "
+                 + (_stats(nd) if nd.numel() else "none"))
     row["max_abs_err"] = max_abs_diff(torch, [got], [plain()])
     if lb.limbs_to_ints(got.cpu()) != want:
         fail(f"{row['name']}: differs from Python integers on the recorded operands")
@@ -1582,8 +1641,48 @@ def report_build(cgp) -> None:
         for ln in lines:
             if ln.startswith("== ") or "registers" in ln or "Compiling entry" in ln:
                 log("  " + ln.strip())
+        for (kname, npt), p in sorted(ptxas_instances(cgp.BUILD_INFO["log"]).items()):
+            shapes = [f"{sh}" for sh, n in compose2_npt().items() if n == (kname, npt)]
+            log(f"ptxas {kname}_kernel<{npt}>"
+                + (f" (compose2: {', '.join(shapes)})" if shapes else "")
+                + f": {p.get('regs')} registers, {p.get('stack')} bytes stack frame, "
+                f"{p.get('stores')} / {p.get('loads')} bytes spill stores / loads")
     else:
         log("ptxas: libraries were already built, no compiler report")
+
+
+def compose2_npt() -> dict:
+    """{shape: (kernel, NPT)} of the K5d and K4 calls compose2 makes: K5d
+    (Lx, Ly, L_out) at ceil(L_out / 32), K4 (Lx, Ld) at ceil(N / 32), N =
+    max(Lx, steps + Ld) + 1."""
+    out = {sh: ("divexact_odd", -(-sh[2] // 32)) for sh in K5D_SHAPES}
+    out.update({sh: ("redc_mod", -(-(max(sh[0], K4_STEPS + sh[1]) + 1) // 32))
+                for sh in K4_SHAPES})
+    return out
+
+
+def ptxas_instances(text: str) -> dict:
+    """{(kernel, NPT): {regs, stack, stores, loads}} of K5d's and K4's
+    instances in nvcc's -Xptxas=-v report."""
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\S+?)'?$",
+                      ln.strip())
+        if m:
+            k = re.search(r"(divexact_odd|redc_mod)_kernelILi(\d+)EE", m.group(1))
+            cur = (k.group(1), int(k.group(2))) if k else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(cur, {}).update(zip(("stack", "stores", "loads"),
+                                               map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(cur, {})["regs"] = int(m.group(1))
+    return out
 
 
 def main() -> int:

@@ -9,25 +9,34 @@
 //
 // which is x / y whenever y | x and the quotient fits Lo limbs. Like the
 // JAX scan, the kernel needs only the inverse of y's low limb mod 2^16,
-// which it takes itself (wl::modinv16): digit k is the low 16 bits of
-// what is left at limb k times that inverse, and d_k * y is taken off
-// limbs k.. Only the low Lo limbs of x and y count, each read as its low
-// 16 bits, as in the plain version.
+// which it takes itself (wl::modinv16), and makes the quotient's limbs
+// LSB first, but in the Montgomery form K4 uses: digit k is the low 16
+// bits of what is left at limb k times -y^-1 mod 2^16 and d_k * y is
+// added at limbs k.., so the digits are Q = -x y^-1 mod 2^(16 Lo) and q =
+// 2^(16 Lo) - Q, the same integer. Only the low Lo limbs of x and y count,
+// each read as its low 16 bits, as in the plain version.
 //
 // One warp a row (four rows a block). Thread t holds limbs
-// [t*NPT, t*NPT + NPT) of the remainder as 64-bit sums that are never
-// shifted, and wl::hensel_steps (shared with K4) runs the digits: step k
-// folds the carry of limb k-1 (a multiple of 2^16 by then) into limb k,
-// the owner of limb k takes the digit and broadcasts it, and every thread
-// subtracts d_k * y[i - k] from its limbs i in [k, Lo), with y in shared
-// memory. A limb's sum stays within 2^41 of 0.
+// [t*NPT, t*NPT + NPT) of x + Q y as 64-bit sums that are never shifted,
+// and wl::hensel_steps (shared with K4) runs the digits in blocks of NPT:
+// step o belongs to thread o, which folds the carry from below into its
+// limbs and takes their NPT digits one after another in registers, hands
+// them to the warp by ceil(NPT / 2) + 1 shuffles, and every thread above
+// it within reach of y adds d_k * y[i - k] to its limbs i, with y in
+// shared memory. y's significant limbs (a warp max over its nonzero limbs)
+// bound the products: compose2 divides by g and d1, almost always of one
+// limb, and by a3's odd part (c3). A limb's sum stays below 2^41. The
+// negation is one ballot (wl::negate_canonical).
 //
-// What bounds it on this card: the Lo steps run one after another, each a
-// shuffle, a digit and a shuffle before its Lo - k products, so at the
-// main path's 128-256 rows the time is one warp's latency through Lo
-// dependent steps. The function's own bound is its bytes (two rows in,
-// one out): its Lo (Lo + 1) / 2 limb products, done as products with
-// y^-1, would fit the int8 tensor cores in a small fraction of that.
+// What bounds it on this card: the chain, ceil(Lo / NPT) hand-overs (29
+// at compose2's 144 digits, 24 at its 72) and Lo digits of a few
+// dependent integer operations on one thread each, so at the main path's
+// 128-256 rows the time is one warp's latency through that chain. With a
+// one-limb y no thread but the owner multiplies, so even at 16384 rows
+// the chain, not the products, is the work there. The function's own
+// bound is its bytes (two rows in, one out): its limb products, done as
+// products with y^-1, would fit the int8 tensor cores in a small fraction
+// of that.
 
 #include "warp_limbs.cuh"
 
@@ -47,20 +56,19 @@ divexact_odd_kernel(const int* __restrict__ x, const int* __restrict__ y,
   if (row >= B) return;
   const int* px = x + row * sx;
   const int* py = y + row * sy;
-  const int ny = min(Ly, Lo);
   uint32_t* yy = s_y[warp];
-  for (int i = lane; i < ny; i += 32) yy[i] = (uint32_t)py[i] & 0xFFFFu;
-  long long r[NPT];
+  const int ny = wl::load_divisor(yy, py, min(Ly, Lo), lane);
+  unsigned long long r[NPT];
   int qd[NPT];
 #pragma unroll
   for (int j = 0; j < NPT; j++) {
     const int i = lane * NPT + j;
-    r[j] = i < Lo ? (long long)((uint32_t)px[i] & 0xFFFFu) : 0;
+    r[j] = i < Lo ? ((uint32_t)px[i] & 0xFFFFu) : 0u;
     qd[j] = 0;
   }
-  __syncwarp();
-  const uint32_t yinv = (uint32_t)wl::modinv16((int)yy[0]);
-  wl::hensel_steps<NPT, true>(r, qd, yy, ny, Lo, yinv, true, Lo, lane);
+  const uint32_t minv = (0x10000u - (uint32_t)wl::modinv16((int)yy[0])) & 0xFFFFu;
+  wl::hensel_steps<NPT>(r, qd, yy, ny, minv, Lo, lane);
+  wl::negate_canonical<NPT>(qd, lane, Lo);
   wl::store_row<NPT>(qd, q + row * Lo, Lo, lane);
 }
 

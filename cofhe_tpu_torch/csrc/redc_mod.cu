@@ -21,20 +21,30 @@
 // One warp a row (four rows a block). Thread t holds positions
 // [t*NPT, t*NPT + NPT) of x + Q d as 64-bit sums over N = max(Lx, steps +
 // Ld) + 1 positions, never shifted, and wl::hensel_steps (shared with K5d)
-// runs the digits: step k folds the carry of position k-1 into position k
-// and clears k-1, the owner of position k takes t_k and broadcasts it, and
-// each thread adds t_k * d[i - k] to its positions i in [k, k + Ld), with
-// d in shared memory. The positions from `steps` on
-// are then R: split, carried (wl::split_u64, wl::carry_nonneg), compared
-// with d and, when R >= d, d is taken off and the row canonicalized.
+// runs the digits in blocks of NPT: step o belongs to thread o, which folds
+// the carry from below into its positions and takes their NPT digits t_k
+// one after another in registers, hands them to the warp by ceil(NPT / 2)
+// + 1 shuffles, and every thread above it within reach of d adds t_k *
+// d[i - k] to its positions i, with d in shared memory. d's significant
+// limbs (a warp max over its nonzero limbs) bound the products. A row
+// outside `active` takes no digit step: its positions are x's limbs, below
+// 2^16, so they carry nothing and the positions from `steps` on are
+// floor(x / 2^(16 steps)) as they stand, for any Lx. Then positions below
+// steps - 1 (spent sums, their carries moved up) are cleared, and the
+// positions from `steps` on are R: split, carried (wl::split_u64,
+// wl::carry_nonneg), compared with d and, when R >= d, d is taken off and
+// the row canonicalized.
 //
-// What bounds it on this card: the steps run one after another (a shuffle,
-// a digit and a shuffle before Ld products each), so at the main path's
-// 128-256 rows the time is one warp's latency through `steps` dependent
-// steps. The function's steps * Ld limb products would fit the int8
-// tensor cores in a small fraction of its bytes (two rows and a flag in,
-// one row out); its carries, comparison and subtraction on CUDA cores set
-// its bound.
+// What bounds it on this card: on active rows the chain, ceil(steps /
+// NPT) hand-overs (15 at compose2's width 72, where N = 145 and NPT = 5;
+// 24 at width 8, N = 81, NPT = 3) and `steps` digits of a few dependent
+// integer operations on one thread each, so at the main path's 128-256
+// rows the time is one warp's latency through that chain; with a one-limb
+// d no thread but the owner multiplies. An inactive row costs its loads,
+// carries and comparison. The function's steps * Ld limb products would
+// fit the int8 tensor cores in a small fraction of its bytes (two rows and
+// a flag in, one row out); its carries, comparison and subtraction on CUDA
+// cores set its bound.
 
 #include "warp_limbs.cuh"
 
@@ -56,19 +66,22 @@ redc_mod_kernel(const int* __restrict__ x, const int* __restrict__ d,
   const int* px = x + row * sx;
   const int* pd = d + row * sd;
   uint32_t* dd = s_d[warp];
-  for (int i = lane; i < Ld; i += 32) dd[i] = (uint32_t)pd[i] & 0xFFFFu;
-  long long r[NPT];
+  const int nd = wl::load_divisor(dd, pd, Ld, lane);
+  unsigned long long r[NPT];
   int unused[NPT];
 #pragma unroll
   for (int j = 0; j < NPT; j++) {
     const int i = lane * NPT + j;
     r[j] = i < Lx ? ((uint32_t)px[i] & 0xFFFFu) : 0u;
   }
-  __syncwarp();
-  const bool act = active == nullptr || active[row] != 0;
-  const uint32_t minv = (0x10000u - (uint32_t)wl::modinv16((int)dd[0])) & 0xFFFFu;
-  wl::hensel_steps<NPT, false>(r, unused, dd, Ld, N, minv, act, steps, lane);
-  if (steps > 0) wl::hensel_fold<NPT>(r, steps, lane);
+  if (active == nullptr || active[row] != 0) {  // warp-uniform
+    const uint32_t minv =
+        (0x10000u - (uint32_t)wl::modinv16((int)dd[0])) & 0xFFFFu;
+    wl::hensel_steps<NPT>(r, unused, dd, nd, minv, steps, lane);
+  }
+#pragma unroll
+  for (int j = 0; j < NPT; j++)
+    if (lane * NPT + j < steps - 1) r[j] = 0;
 
   // R at positions [steps, N): canonical, cut to Lx limbs, compared with d
   int v[NPT];

@@ -138,6 +138,28 @@ __device__ __forceinline__ int map_compose(int g, int h) {
 }
 #define WL_ID_MAP 5
 
+// 2^(16 W) - x mod 2^(16 W) of canonical limbs x: zeros below the lowest
+// nonzero limb, 2^16 - limb there, 2^16 - 1 - limb above.
+template <int NPT>
+__device__ __forceinline__ void negate_canonical(int (&x)[NPT], int lane, int W) {
+  bool mine = false;
+#pragma unroll
+  for (int j = 0; j < NPT; j++) mine |= x[j] != 0;
+  uint32_t nzmask = __ballot_sync(WL_FULL, mine);
+  bool seen = (nzmask & ((1u << lane) - 1u)) != 0;
+#pragma unroll
+  for (int j = 0; j < NPT; j++) {
+    int i = lane * NPT + j;
+    if (i >= W) continue;
+    if (seen) {
+      x[j] = 0xFFFF - x[j];
+    } else if (x[j] != 0) {
+      x[j] = 0x10000 - x[j];
+      seen = true;
+    }
+  }
+}
+
 // limb.canonicalize_fast: redundant signed limbs (|value| < 2^(16 W)) ->
 // (sign, canonical magnitude in x). Two floor passes bound the lower limbs
 // to [-1, 2^16]; each lower limb's carry-out is then a map of its carry-in;
@@ -180,26 +202,7 @@ __device__ __forceinline__ int canonicalize(int (&x)[NPT], int lane, int W) {
     }
   }
   int is_neg = __shfl_sync(WL_FULL, final_c, top_lane) < 0;
-  if (is_neg) {
-    // 2^(16 W) - mag: zeros below the lowest nonzero limb, 2^16 - limb
-    // there, 2^16 - 1 - limb above
-    bool mine = false;
-#pragma unroll
-    for (int j = 0; j < NPT; j++) mine |= x[j] != 0;
-    uint32_t nzmask = __ballot_sync(WL_FULL, mine);
-    bool seen = (nzmask & ((1u << lane) - 1u)) != 0;
-#pragma unroll
-    for (int j = 0; j < NPT; j++) {
-      int i = lane * NPT + j;
-      if (i >= W) continue;
-      if (seen) {
-        x[j] = 0xFFFF - x[j];
-      } else if (x[j] != 0) {
-        x[j] = 0x10000 - x[j];
-        seen = true;
-      }
-    }
-  }
+  if (is_neg) negate_canonical<NPT>(x, lane, W);  // 2^(16 W) - mag
   bool nz = false;
 #pragma unroll
   for (int j = 0; j < NPT; j++) nz |= x[j] != 0;
@@ -385,71 +388,125 @@ __device__ __forceinline__ void split_u64(const T (&s)[NPT], int (&x)[NPT],
   }
 }
 
-// ---- Hensel digit steps (K5d's quotient, K4's Montgomery digits)
+// ---- Hensel digits in blocks (K5d's quotient, K4's Montgomery digits)
 
-// A remainder as 64-bit sums at fixed positions, NPT a thread, never
-// shifted. Position k-1's carry joins position k and k-1 is cleared: once
-// its digit is taken it is a multiple of 2^16 (a REDC row outside its mask
-// takes no digit and drops its low bits there, which is the floor).
-template <int NPT>
-__device__ __forceinline__ void hensel_fold(long long (&r)[NPT], int k,
-                                            int lane) {
-  const int owner = k / NPT, slot = k - owner * NPT;  // warp-uniform
-  const int pslot = (slot + NPT - 1) % NPT, powner = (k - 1) / NPT;
-  long long c = 0;
-#pragma unroll
-  for (int j = 0; j < NPT; j++) {
-    if (j == pslot) {
-      c = r[j] >> 16;
-      if (lane == powner) r[j] = 0;
-    }
+// A divisor row's L limbs, each read as its low 16 bits, into shared memory
+// (lane-strided); returns its significant limbs, 1 + the index of its top
+// nonzero limb (0 for zero), by a warp max. Ends with __syncwarp.
+__device__ __forceinline__ int load_divisor(uint32_t* dst, const int* src,
+                                            int L, int lane) {
+  int top = 0;
+  for (int i = lane; i < L; i += 32) {
+    const uint32_t v = (uint32_t)src[i] & 0xFFFFu;
+    dst[i] = v;
+    if (v) top = i + 1;
   }
-  if (slot == 0) c = __shfl_up_sync(WL_FULL, c, 1);
-  if (lane == owner) {
-#pragma unroll
-    for (int j = 0; j < NPT; j++)
-      if (j == slot) r[j] += c;
-  }
+  __syncwarp();
+  return __reduce_max_sync(WL_FULL, top);
 }
 
-// `steps` digit steps, LSB first. Step k folds position k-1 into k, takes
-// the digit t = (position k mod 2^16) * inv mod 2^16 on the owner lane (0
-// where `live` is false), broadcasts it and adds t * div[m] at positions
-// k + m < W, m < Ld (div in shared memory). QUOTIENT takes t * div[m] off
-// instead and keeps each digit in q at its position: with inv = div^-1 mod
-// 2^16 the digits are x * div^-1 mod 2^(16 steps) (K5d). Otherwise, with
-// inv = -div^-1 mod 2^16, the positions from `steps` on hold (x + Q div) /
-// 2^(16 steps) once position `steps` is folded (K4). A position's sum stays
-// within 2^46 of 0.
-template <int NPT, bool QUOTIENT>
-__device__ __forceinline__ void hensel_steps(long long (&r)[NPT],
+// One block step of hensel_steps: block o (thread o's positions [o NPT,
+// o NPT + NPT)) takes n digits, NPT when FULL.
+template <int NPT, bool FULL>
+__device__ __forceinline__ void hensel_block(unsigned long long (&r)[NPT],
                                              int (&q)[NPT],
-                                             const uint32_t* div, int Ld,
-                                             int W, uint32_t inv, bool live,
-                                             int steps, int lane) {
-  for (int k = 0; k < steps; k++) {
-    if (k > 0) hensel_fold<NPT>(r, k, lane);
-    const int owner = k / NPT, slot = k - owner * NPT;  // warp-uniform
-    long long rk = 0;
+                                             const uint32_t (&dlo)[NPT],
+                                             const uint32_t* div, int nd,
+                                             uint32_t inv, int o, int n,
+                                             uint32_t& cin, int lane) {
+  constexpr int NW = (NPT + 1) / 2;  // digit words a hand-over
+  uint32_t t[NPT];
+  uint32_t cout = 0;
 #pragma unroll
-    for (int j = 0; j < NPT; j++)
-      if (j == slot) rk = r[j];
-    uint32_t t = live ? ((((uint32_t)rk & 0xFFFFu) * inv) & 0xFFFFu) : 0u;
-    t = __shfl_sync(WL_FULL, t, owner);
-    if (QUOTIENT && lane == owner) {
+  for (int s = 0; s < NPT; s++) t[s] = 0u;
+  if (lane == o) {
+    r[0] += cin;
 #pragma unroll
-      for (int j = 0; j < NPT; j++)
-        if (j == slot) q[j] = (int)t;
+    for (int s = 0; s < NPT; s++) {
+      if (FULL || s < n) {
+        if (s > 0) r[s] += r[s - 1] >> 16;
+        t[s] = ((uint32_t)r[s] * inv) & 0xFFFFu;
+#pragma unroll
+        for (int j = s; j < NPT; j++)
+          r[j] += (unsigned long long)t[s] * dlo[j - s];
+        q[s] = (int)t[s];
+      }
+    }
+    cout = (uint32_t)(r[NPT - 1] >> 16);
+  }
+  uint32_t w[NW];
+#pragma unroll
+  for (int i = 0; i < NW; i++) {
+    const uint32_t hi = 2 * i + 1 < NPT ? t[2 * i + 1] << 16 : 0u;
+    w[i] = __shfl_sync(WL_FULL, t[2 * i] | hi, o);
+  }
+  cin = __shfl_sync(WL_FULL, cout, o);
+#pragma unroll
+  for (int s = 0; s < NPT; s++) t[s] = (w[s / 2] >> (16 * (s % 2))) & 0xFFFFu;
+  // slot j of this thread takes digit s times div[base + j - s]
+  const int base = (lane - o) * NPT;
+  if (lane > o && base - (NPT - 1) < nd) {
+    uint32_t dw[2 * NPT - 1];
+#pragma unroll
+    for (int i = 0; i < 2 * NPT - 1; i++) {
+      const int m = base - (NPT - 1) + i;  // >= 1
+      dw[i] = m < nd ? div[m] : 0u;
     }
 #pragma unroll
     for (int j = 0; j < NPT; j++) {
-      const int i = lane * NPT + j, m = i - k;
-      if (m >= 0 && m < Ld && i < W) {
-        const long long p = (long long)(t * div[m]);
-        r[j] += QUOTIENT ? -p : p;
-      }
+#pragma unroll
+      for (int s = 0; s < NPT; s++)
+        r[j] += (unsigned long long)t[s] * dw[j - s + NPT - 1];
     }
   }
+}
+
+// `steps` Montgomery digits, LSB first, in blocks of NPT: block o is thread
+// o's positions [o NPT, o NPT + NPT), the last block holds the digits left
+// (steps - o NPT). r holds x + Q div as 64-bit sums at fixed positions,
+// never shifted; div is the divisor's low 16 bits in shared memory, of
+// which nd are significant (div[m] = 0 for m >= nd adds nothing and is not
+// multiplied); inv = -div^-1 mod 2^16. One block step:
+//  1. the owner, thread o, adds the carry of position o NPT - 1 to its
+//     first position and takes its digits one after another in registers:
+//     digit s is (position s mod 2^16) * inv mod 2^16 (kept in q[s]); d_s *
+//     div[m] joins its positions s + m (m < NPT, from registers), and
+//     position s's carry, a multiple of 2^16 by then, joins position s + 1;
+//  2. it hands the warp its digits, two a word, and the carry of its last
+//     position: ceil(NPT / 2) + 1 independent shuffles;
+//  3. each thread above it within reach of the divisor adds d_s * div[m]
+//     to its positions (m = position - (o NPT + s) < nd, from shared
+//     memory), NPT digits on NPT positions.
+// So the chain is ceil(steps / NPT) hand-overs and `steps` digits on one
+// thread's registers, every register index static, every product one
+// 32 x 32 -> 64-bit multiply-add, and the products run over the divisor's
+// significant limbs only. The digits are Q = -x div^-1 mod 2^(16 steps).
+// Position steps - 1 keeps its carry and positions below it hold spent
+// sums (multiples of 2^16 whose carries have moved up): with those cleared
+// and the sums split (split_u64), the positions from `steps` on are (x + Q
+// div) / 2^(16 steps) (K4). Positions past the row's width take products
+// too and are never read.
+// Each position p receives x_p (below 2^16), the products d_k div[p - k]
+// for k <= p, k < steps, p - k < nd, the ones the limb-by-limb Hensel loop
+// gives it, and the carry of p - 1 once. Worst case: 288 products of
+// (2^16 - 1)^2 beside x_p and a carry below 2^25 (the position below over
+// 2^16), all nonnegative, so every sum stays below 288 * 2^32 + 2^26 <
+// 2^41.
+template <int NPT>
+__device__ __forceinline__ void hensel_steps(unsigned long long (&r)[NPT],
+                                             int (&q)[NPT],
+                                             const uint32_t* div, int nd,
+                                             uint32_t inv, int steps,
+                                             int lane) {
+  uint32_t dlo[NPT];  // the divisor's low limbs, for the owner
+#pragma unroll
+  for (int m = 0; m < NPT; m++) dlo[m] = m < nd ? div[m] : 0u;
+  uint32_t cin = 0;  // the carry into the next owner's first position
+  const int full = steps / NPT, rest = steps - full * NPT;
+  for (int o = 0; o < full; o++)
+    hensel_block<NPT, true>(r, q, dlo, div, nd, inv, o, NPT, cin, lane);
+  if (rest > 0)
+    hensel_block<NPT, false>(r, q, dlo, div, nd, inv, full, rest, cin, lane);
 }
 
 }  // namespace wl

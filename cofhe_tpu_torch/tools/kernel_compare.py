@@ -6,8 +6,8 @@ directory, on the operands the main path really passes, on one CUDA card.
 DIR holds the earlier sources of the kernels (and warp_limbs.cuh) with
 this checkout's C entry points (cuda_group._ARGTYPES); for example an
 unpacked `git archive <commit> cofhe_tpu_torch/csrc`. A kernel whose
-source DIR lacks (KT before it existed) is compared with nothing, and so
-are K5m, K5d and K4, which this script does not call. The earlier K1 is
+source DIR lacks (KT, K5d or K4 before they existed) is compared with
+nothing, and so is K5m, which this script does not call. The earlier K1 is
 the 13-divstep kernel: it gets its loop cap in 13-step groups (a cap that
 also covers any kernel of longer groups, whose loop ends once g is zero),
 and its trips count 13 divsteps a group. Where an earlier kernel is the
@@ -22,11 +22,12 @@ measurement. From the root of a checkout, the script:
    inputs and Enc(0), eagerly (a captured graph would keep this
    checkout's kernels), with this checkout's kernels and with the earlier
    ones: seconds, and whether the outputs equal the main run's;
-4. on each recorded operand, checks that both kernels agree (K1, K2 and
-   KT bit for bit, K3 after the exact tail) and times them in turns
-   (earlier, this, this, earlier), with each one's trips and bound (the
-   earlier K1's at its 13-divstep per-limb count, K2, K3 and KT at this
-   checkout's counts);
+4. on each recorded operand, checks that both kernels agree (K1, K2, KT,
+   K5d and K4 bit for bit, K3 after the exact tail) and times them in
+   turns (earlier, this, this, earlier), with each one's trips and bound
+   (the earlier K1's at its 13-divstep per-limb count, the others at this
+   checkout's counts; K5d's and K4's bound is the function's own, the same
+   for both);
 5. profiles one eager compose2 at 128 lanes with each set of kernels.
 
 Any disagreement raises. chip_smoke.py stays the check the port must pass;
@@ -48,6 +49,10 @@ import time
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BASELINE_K1_STEPS = 13  # divsteps a group of the earlier K1
+# calls a timed turn at most: timed() holds the card with a spin kernel
+# while the host queues the calls, but with thousands of them a ~0.01 ms
+# kernel (K5d, K4 at 128 lanes) was timed at the host's launch rate
+MAX_TURN_CALLS = 200
 
 
 class Baseline:
@@ -121,11 +126,31 @@ class Baseline:
                    self._ptr(iters), a.shape[0], a.shape[1], int(max_iters))
         return self.cgp.BForm(ao, bs, bo, co)
 
+    def divexact_odd(self, torch, x, y, L_out):
+        Lx, Ly = x.shape[-1], y.shape[-1]
+        x, y, lead = self.cgp._broadcast("mag_divexact_odd", x, y)
+        xr, sx = self.cgp._rows("mag_divexact_odd", x)
+        yr, sy = self.cgp._rows("mag_divexact_odd", y, xr)
+        q = torch.empty((xr.shape[0], L_out), dtype=torch.int32, device=xr.device)
+        self._call(torch, "divexact_odd", xr.data_ptr(), yr.data_ptr(), q.data_ptr(),
+                   xr.shape[0], Lx, Ly, sx, sy, L_out)
+        return q.reshape(*lead, L_out)
+
+    def redc_mod(self, torch, x, d, steps, active=None):
+        xr, sx = self.cgp._rows("redc_mod", x)
+        dr, sd = self.cgp._rows("redc_mod", d, xr)
+        out = torch.empty(xr.shape, dtype=torch.int32, device=xr.device)
+        act = None if active is None else active.contiguous()
+        self._call(torch, "redc_mod", xr.data_ptr(), dr.data_ptr(), self._ptr(act),
+                   out.data_ptr(), xr.shape[0], xr.shape[1], dr.shape[1], sx, sd, int(steps))
+        return out
+
 
 # cuda_group's wrapper for each kernel
 WRAPPER = {"xgcd_coeff_g": "xgcd_coeff_g_cuda", "mod_topdown": "mod_topdown_cuda",
            "reduce2_grouped": "reduce2_grouped_loop_cuda",
-           "reduce_exact": "reduce_exact_cuda"}
+           "reduce_exact": "reduce_exact_cuda", "divexact_odd": "mag_divexact_odd_cuda",
+           "redc_mod": "redc_mod_cuda"}
 
 
 @contextlib.contextmanager
@@ -238,6 +263,25 @@ def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
         trips_new, trips_old = smoke._stats(it_new), smoke._stats(it_old)
         tails = (f", exact-tail steps {int(t_new.long().sum())} (baseline "
                  f"{int(t_old.long().sum())})")
+    elif name == "divexact_odd":
+        x, y, Lo = args
+        if smoke.max_abs_diff(torch, [base.divexact_odd(torch, x, y, Lo)],
+                              [cgp.mag_divexact_odd_cuda(x, y, Lo)]):
+            smoke.fail(f"{name}[W={W}]@B={B}: the baseline kernel disagrees")
+        new_fn = lambda: cgp.mag_divexact_odd_cuda(x, y, Lo)  # noqa: E731
+        old_fn = lambda: base.divexact_odd(torch, x, y, Lo)  # noqa: E731
+        bnd = smoke.k5d_bound(B, y.shape[-1], Lo)
+        trips_new = trips_old = f"{Lo} digits"
+    elif name == "redc_mod":
+        x, d, steps, active = args
+        if smoke.max_abs_diff(torch, [base.redc_mod(torch, x, d, steps, active)],
+                              [cgp.redc_mod_cuda(x, d, steps, active)]):
+            smoke.fail(f"{name}[W={W}]@B={B}: the baseline kernel disagrees")
+        new_fn = lambda: cgp.redc_mod_cuda(x, d, steps, active)  # noqa: E731
+        old_fn = lambda: base.redc_mod(torch, x, d, steps, active)  # noqa: E731
+        bnd = smoke.k4_bound(B, W, d.shape[1], steps)
+        trips_new = trips_old = (f"{steps} digits, "
+                                 f"{B if active is None else int(active.sum())} active lanes")
     else:
         a, b, c, max_iters = args
         got = cgp.reduce_exact_cuda(a, b, c, max_iters, iters=it_new)
@@ -250,13 +294,18 @@ def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
         old_ops = float(it_old.long().sum()) * W * smoke.OPS_KT
         nbytes = 4.0 * B * (6 * W + 2)
         trips_new, trips_old = smoke._stats(it_new), smoke._stats(it_old)
-    # a first timing warms the card and sizes each turn to >= 20 ms of calls
-    reps = max(smoke.TIMING_REPS, int(20.0 / smoke.timed(torch, new_fn, 3)))
+    # a first timing warms the card and sizes each turn to >= 20 ms of calls,
+    # at most MAX_TURN_CALLS of them
+    reps = min(MAX_TURN_CALLS,
+               max(smoke.TIMING_REPS, int(20.0 / smoke.timed(torch, new_fn, 3))))
     t = {"new": [], "old": []}
     for turn, fn in (("old", old_fn), ("new", new_fn), ("new", new_fn), ("old", old_fn)):
         t[turn].append(smoke.timed(torch, fn, reps))
     ms, old_ms = sum(t["new"]) / 2, sum(t["old"]) / 2
-    bms, old_bms = smoke.bound(new_ops, nbytes)[0], smoke.bound(old_ops, nbytes)[0]
+    if name in ("divexact_odd", "redc_mod"):
+        bms = old_bms = bnd[0]
+    else:
+        bms, old_bms = smoke.bound(new_ops, nbytes)[0], smoke.bound(old_ops, nbytes)[0]
     smoke.log(f"compare {name}[W={W}]@B={B}: this kernel {ms:.4f} ms (trips "
               f"{trips_new}, bound {bms:.5f} ms, {bms / ms:.1%} of it), "
               f"baseline {old_ms:.4f} ms (trips {trips_old}, bound "
@@ -297,6 +346,10 @@ def main() -> int:
     hsm = port.CLHSM2k(smoke.SEC, smoke.K)
     cg = port.TorchEngine(hsm, "cuda").cg
     gmp = port.hostgmp.GmpClassGroup(hsm.Delta)
+    from cofhe_tpu_torch.ops import graphs
+    from cofhe_tpu_torch.tools import mesh_check
+
+    smoke.CALLS = mesh_check.count_calls(cgp, graphs)  # as chip_smoke.main does
     rec = smoke.Recorder(torch, cgp)
     _, _, main_path = smoke.run_slice(torch, cgp, rec, port.CryptoSystem, port.Tensor,
                                       port.hostgmp.GmpEngine, rng)
