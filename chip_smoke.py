@@ -17,9 +17,14 @@
    inactive, as compose2's rare-lane REDCs run), K5m at widths 1 to 288
    with L_out below, at and above La + Lb, and K5d and K4 at widths and
    step counts that are not multiples of a thread's limbs (1, 31, 33, 143,
-   K4 also with x wider than its steps). The build's ptxas report gives
-   the registers, stack frame and spills of each K5d and K4 instance and
-   which of them compose2 launches. KT, the exact tail, runs on K3's
+   K4 also with x wider than its steps). K5m is also timed at each of its
+   launch shapes (1, 2 and 4 warps a row) at compose2's shapes and
+   batches. The build's ptxas report gives the registers, stack frame and
+   spills of each K5m, K5d, K4 and KT instance and which of them compose2
+   launches; the SASS of every K5m instance (cuobjdump -sass) must hold
+   IMMA instructions, its products on the tensor cores, and the counts of
+   IMMA, warp collectives, shared atomics and barriers in each K5m and KT
+   instance are printed. KT, the exact tail, runs on K3's
    outputs of real compose2 operands (self-composes, inverse pairs and
    powers of f, which drop deep into the tail), must give GMP's composes,
    and on edge cases (b = -a, a = c with b < 0, a > c, reduced forms, and
@@ -207,6 +212,12 @@ K5M_EDGE_SHAPES = ((1, 1, 1), (1, 1, 2), (1, 1, 3), (8, 8, 8), (8, 8, 16),
                    (144, 144, 288), (144, 8, 160), (200, 72, 272), (200, 200, 288),
                    (264, 264, 264), (264, 8, 272), (264, 24, 288), (288, 288, 288),
                    (288, 1, 288), (1, 288, 288), (288, 288, 1))
+# KT's width at sec=128, k=128 (L), and K5m's launch shapes timed beside
+# the launcher's choice: warps a row
+KT_L = 144
+K5M_WPR = (1, 2, 4)
+# SASS mnemonics counted in the K5m and KT instances (check_sass)
+SASS_OPS = ("IMMA", "SHFL", "VOTE", "REDUX", "ATOMS", "BAR")
 TIMING_REPS = 5
 
 
@@ -454,28 +465,39 @@ def kt_edge_forms(base, rng, L, n):
     return forms, want
 
 
-def check_kt(torch, cgp, cg, gmp, hsm, port, rng, B):
-    """KT on K3's outputs of B compose2 operand pairs (random powers of h,
-    self-composes, inverse pairs, powers of f) and, at 128 lanes, on edge
-    cases: bit-exact against its plain version, GMP's composes and the
-    Python oracle, every lane reduced before the cap."""
-    from cofhe_tpu_torch.core.qfi import is_reduced, neg, reduce_form
+def kt_operands(cgp, cg, hsm, port, rng, base, B, deep=True):
+    """KT's operands from B compose2 operand pairs drawn from the forms
+    `base`: K3's redundant outputs (a, b, c) and the pairs. With `deep`,
+    every sixth lane of the first 96 is a self-compose, then an inverse
+    pair and two powers of f, which drop deep into the exact tail."""
+    from cofhe_tpu_torch.core.qfi import neg, reduce_form
 
-    base = gmp.nupow_batch([hsm.h] * 64, [rng.getrandbits(1100) for _ in range(64)])
-    f1 = [base[rng.randrange(64)] for _ in range(B)]
-    f2 = [base[rng.randrange(64)] for _ in range(B)]
-    for i in range(0, min(B, 96), 6):
+    f1 = [base[rng.randrange(len(base))] for _ in range(B)]
+    f2 = [base[rng.randrange(len(base))] for _ in range(B)]
+    for i in range(0, min(B, 96) if deep else 0, 6):
         f1[i] = f2[i]                                  # a self-compose
         f1[i + 1] = reduce_form(neg(f2[i + 1]))        # an inverse pair
         f1[i + 2] = hsm.power_of_f(rng.getrandbits(K))
         f2[i + 3] = hsm.power_of_f(rng.getrandbits(K))
     b1 = port.bform_from_forms(f1, cg.L, "cuda")
     b2 = port.bform_from_forms(f2, cg.L, "cuda")
+    a3, b3s, b3m, c3, *_ = cg.compose2_unreduced(b1, b2)
+    raw = cgp.reduce2_grouped_loop_cuda(a3, b3s[..., None] * b3m, c3, cg.dD_mant,
+                                        cg.dD_top, cg.red_iters)
+    return f1, f2, raw
+
+
+def check_kt(torch, cgp, cg, gmp, hsm, port, rng, B):
+    """KT on K3's outputs of B compose2 operand pairs (random powers of h,
+    self-composes, inverse pairs, powers of f) and, at 128 lanes, on edge
+    cases: bit-exact against its plain version, GMP's composes and the
+    Python oracle, every lane reduced before the cap."""
+    from cofhe_tpu_torch.core.qfi import is_reduced
+
+    base = gmp.nupow_batch([hsm.h] * 64, [rng.getrandbits(1100) for _ in range(64)])
     cap = cg.tail_iters
     with torch.inference_mode():
-        a3, b3s, b3m, c3, *_ = cg.compose2_unreduced(b1, b2)
-        raw = cgp.reduce2_grouped_loop_cuda(a3, b3s[..., None] * b3m, c3, cg.dD_mant,
-                                            cg.dD_top, cg.red_iters)
+        f1, f2, raw = kt_operands(cgp, cg, hsm, port, rng, base, B)
         cases = [("compose", raw, gmp.compose_batch(f1[:256], f2[:256]))]
         if B == SMALL_B:
             forms, want = kt_edge_forms(base, rng, cg.L, B)
@@ -616,11 +638,37 @@ def check_k5m(torch, cgp, lb, rng, B, La, Lb, Lo, edge=False, timing=True):
     plain_ms = timed(torch, lambda: cgp.mag_mul_plain(a, b, Lo), 1,
                      warm=False) if B == KERNEL_B else float("nan")
     bms, by, bcc = k5m_bound(B, La, Lb, Lo)
+    by_wpr = k5m_launch_shapes(torch, cgp, a, b, Lo, got)
     log(f"{label}: bit-exact vs plain and a * b mod 2^(16 L_out); kernel {ms:.4f} ms, "
         f"plain (cuFFT) {plain_ms:.3f} ms, bound {bms:.5f} ms ({by}), on CUDA cores "
-        f"{bcc:.5f} ms")
+        f"{bcc:.5f} ms; K5m launch shapes, warps a row "
+        + " / ".join(f"{w}: {t:.4f}" for w, t in by_wpr.items()) + " ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 bound_cuda_cores_ms=bcc, err=err)
+
+
+def k5m_launch_shapes(torch, cgp, a, b, Lo, want):
+    """K5m through mag_mul_launch_split at each launch shape (warps a row,
+    K5M_WPR) on the same operands: bit-exact against `want`; {warps: ms}."""
+    import ctypes
+
+    fn = ctypes.CDLL(cgp._lib_path("mag_mul")).mag_mul_launch_split
+    fn.restype = ctypes.c_int
+    fn.argtypes = cgp._ARGTYPES["mag_mul"][:-1] + [ctypes.c_int, ctypes.c_void_p]
+    B, out = a.shape[0], {}
+    res = torch.empty_like(want)
+    for wpr in K5M_WPR:
+        def call(wpr=wpr):
+            rc = fn(a.data_ptr(), b.data_ptr(), res.data_ptr(), B, a.shape[1], b.shape[1],
+                    a.stride(0), b.stride(0), Lo, wpr, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                fail(f"K5m at {wpr} warps a row: launch failed, cudaError {rc}")
+        res.zero_()
+        call()
+        if not torch.equal(res, want):
+            fail(f"K5m at {wpr} warps a row differs from the launcher's product")
+        out[wpr] = timed(torch, call, TIMING_REPS)
+    return out
 
 
 def k5d_operands(rng, B, Lx, Ly, Lo, edge: bool):
@@ -1641,9 +1689,9 @@ def report_build(cgp) -> None:
         for ln in lines:
             if ln.startswith("== ") or "registers" in ln or "Compiling entry" in ln:
                 log("  " + ln.strip())
-        for (kname, npt), p in sorted(ptxas_instances(cgp.BUILD_INFO["log"]).items()):
-            shapes = [f"{sh}" for sh, n in compose2_npt().items() if n == (kname, npt)]
-            log(f"ptxas {kname}_kernel<{npt}>"
+        for (kname, args), p in sorted(ptxas_instances(cgp.BUILD_INFO["log"]).items()):
+            shapes = [f"{sh}" for sh, n in compose2_npt().items() if n == (kname, args[0])]
+            log(f"ptxas {kname}_kernel<{', '.join(map(str, args))}>"
                 + (f" (compose2: {', '.join(shapes)})" if shapes else "")
                 + f": {p.get('regs')} registers, {p.get('stack')} bytes stack frame, "
                 f"{p.get('stores')} / {p.get('loads')} bytes spill stores / loads")
@@ -1652,25 +1700,37 @@ def report_build(cgp) -> None:
 
 
 def compose2_npt() -> dict:
-    """{shape: (kernel, NPT)} of the K5d and K4 calls compose2 makes: K5d
-    (Lx, Ly, L_out) at ceil(L_out / 32), K4 (Lx, Ld) at ceil(N / 32), N =
-    max(Lx, steps + Ld) + 1."""
-    out = {sh: ("divexact_odd", -(-sh[2] // 32)) for sh in K5D_SHAPES}
+    """{shape: (kernel, NPT)} of the K5m, K5d, K4 and KT calls compose2
+    makes: K5m (La, Lb, L_out) and K5d (Lx, Ly, L_out) at ceil(L_out / 32),
+    K4 (Lx, Ld) at ceil(N / 32), N = max(Lx, steps + Ld) + 1, KT at
+    ceil(L / 32)."""
+    out = {sh: ("mag_mul", -(-sh[2] // 32)) for sh in K5M_SHAPES}
+    out.update({sh: ("divexact_odd", -(-sh[2] // 32)) for sh in K5D_SHAPES})
     out.update({sh: ("redc_mod", -(-(max(sh[0], K4_STEPS + sh[1]) + 1) // 32))
                 for sh in K4_SHAPES})
+    out[(KT_L,)] = ("reduce_exact", -(-KT_L // 32))
     return out
 
 
+def kernel_instance(mangled: str):
+    """(kernel, template arguments) of a K5m, K5d, K4 or KT instance's
+    mangled name, else None."""
+    m = re.search(r"(mag_mul|divexact_odd|redc_mod|reduce_exact)_kernelI((?:Li\d+E)+)E",
+                  mangled)
+    if not m:
+        return None
+    return m.group(1), tuple(int(v) for v in re.findall(r"Li(\d+)E", m.group(2)))
+
+
 def ptxas_instances(text: str) -> dict:
-    """{(kernel, NPT): {regs, stack, stores, loads}} of K5d's and K4's
-    instances in nvcc's -Xptxas=-v report."""
+    """{(kernel, template arguments): {regs, stack, stores, loads}} of K5m's,
+    K5d's, K4's and KT's instances in nvcc's -Xptxas=-v report."""
     out, cur = {}, None
     for ln in text.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties for )(\S+?)'?$",
                       ln.strip())
         if m:
-            k = re.search(r"(divexact_odd|redc_mod)_kernelILi(\d+)EE", m.group(1))
-            cur = (k.group(1), int(k.group(2))) if k else None
+            cur = kernel_instance(m.group(1))
             continue
         if cur is None:
             continue
@@ -1683,6 +1743,47 @@ def ptxas_instances(text: str) -> dict:
         if m:
             out.setdefault(cur, {})["regs"] = int(m.group(1))
     return out
+
+
+def sass_functions(nvcc: str, lib: str) -> dict:
+    """{mangled function name: its SASS} of a built library, from the
+    toolkit's cuobjdump -sass."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        out[name.strip()] = body
+    return out
+
+
+def sass_counts(body: str) -> dict:
+    """Tensor-core products, warp collectives, shared atomics and block
+    barriers in one function's SASS, by mnemonic."""
+    return {op: len(re.findall(rf"\b{op}U?\.", body)) for op in SASS_OPS}
+
+
+def check_sass(cgp) -> None:
+    """Reads the SASS of the built K5m and KT libraries: every K5m instance
+    must run its products as IMMA (the tensor cores); prints each
+    instance's counts."""
+    out = {}
+    for name in ("mag_mul", "reduce_exact"):
+        funcs = sass_functions(cgp._nvcc(), cgp._lib_path(name))
+        for fn, body in funcs.items():
+            inst = kernel_instance(fn)
+            if inst is not None:
+                out[inst] = sass_counts(body)
+    k5m = {k: v for k, v in out.items() if k[0] == "mag_mul"}
+    if not k5m:
+        fail("no mag_mul_kernel instance in the SASS of the K5m library")
+    for (kname, args), cnt in sorted(out.items()):
+        if kname == "mag_mul" and cnt["IMMA"] == 0:
+            fail(f"K5m instance mag_mul_kernel<{args}> has no IMMA instruction")
+        log(f"sass {kname}_kernel<{', '.join(map(str, args))}>: "
+            + ", ".join(f"{op} {n}" for op, n in cnt.items()))
+    log(f"sass: all {len(k5m)} mag_mul_kernel instances run their products as IMMA")
 
 
 def main() -> int:
@@ -1711,6 +1812,7 @@ def main() -> int:
     log("host backend: GMP (csrc/classgroup.cpp)")
     cgp.build()
     report_build(cgp)
+    check_sass(cgp)
 
     rng = random.Random(SEED)
     t = time.perf_counter()

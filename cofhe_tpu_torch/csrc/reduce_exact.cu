@@ -25,17 +25,39 @@
 // sequence differs; q >= 1 whenever |b| >= a, so every step moves. A lane
 // still unreduced after max_iters steps reports max_iters + 1 in `iters`.
 //
-// What bounds it on this card: integer operations, per translation and limb
-// two 64-bit products through a limb shift in shared memory, two 4-digit
-// spreads with carry passes and three canonicalizations (warp scans), ~130
-// int32 operations; a rho is a register swap. The bytes (three rows in,
-// three rows and a sign out) are below 2% of that at the main path's
-// widths. At the main path's 128-256 lanes (2-3 iterations a lane) the
-// time is one warp's latency through a few steps. The design keeps every
-// row in registers (blocked limbs, wl::), the shift an address offset into
-// one shared row a warp, and no division in the limbs. Tensor cores and TMA
-// do not fit: a different scalar per lane times one row, read once. Launch
-// shape: four lanes a block, as K2 and K3.
+// What bounds it on this card: the latency of one warp's chain of
+// collectives. The bytes (three rows in, three rows and a sign out) are
+// 0.00013 ms at 128 lanes; at the main path's 128-256 lanes a lane takes
+// 0.00-0.03 steps, so its time is the entry: load, canonicalize, compare,
+// store. A step (deep-tail lanes) is two 64-bit products through a limb
+// shift, two 4-digit spreads with carry passes, canonicalizations (warp
+// scans) and compares, ~130 int32 operations a limb.
+//
+// The design cuts the collectives on that chain (the kernel's first
+// version ran every canonicalization and compare one after another):
+// - one canonicalization pass for several rows (wl::canonicalize_rows): a,
+//   b and c at entry, nb and t in a step; their floor passes, map scans
+//   and sign shuffles run side by side, the negation is a select, and a
+//   row's nonzero ballot gives both the negation and the sign;
+// - a carry map is three 2-bit fields of one int (wl::map_compose), a few
+//   shifts and masks where a base-3 code took integer divisions by 3 and 9
+//   on each of the scan's five levels and each limb of a thread;
+// - a compare (wl::mag_cmp) is two independent ballots and no shuffle; the
+//   three compares a step needs (b : a, a : c and, for the rho's new a,
+//   b : c) run together at the top of the loop, where b = -a -> +a after a
+//   translation also reads b : a;
+// - a and c live in shared rows as well once a lane takes its first
+//   translation (a rho swaps the rows' roles): the product a |q| reads a
+//   shifted by s limbs straight from its row, with no store and sync on
+//   the chain; t takes one store, then its product reads it shifted;
+// - the two value estimates of the quotient run side by side
+//   (wl::value_est_wide reads the top limbs with a fixed number of
+//   shuffles).
+// The quotient rule is the first version's, and so are the steps and
+// `iters`. Every row stays in registers (blocked limbs, wl::); no division
+// in the limbs.
+// Tensor cores and TMA do not fit: a different scalar per lane times one
+// row, read once. Launch shape: four lanes a block, as K2 and K3.
 
 #include "warp_limbs.cuh"
 
@@ -44,43 +66,29 @@ namespace {
 constexpr int kWarps = 4;    // lanes (warps) a block
 constexpr int kQBits = 40;   // a translation's digit stays below 2^kQBits
 
-// out[i] = x[i - s] (0 below s), through the warp's shared row
+// out = x * qd * 2^(16 s) as balanced redundant limbs, x canonical in the
+// warp's shared row `row` (zeros past W; 0 < qd < 2^kQBits: each product
+// is below 2^56), read shifted by s limbs
 template <int NPT>
-__device__ __forceinline__ void shift_up(const int (&x)[NPT], int (&out)[NPT],
-                                         int s, int* row, int lane, int W) {
-#pragma unroll
-  for (int j = 0; j < NPT; j++) row[lane * NPT + j] = x[j];
-  __syncwarp();
+__device__ __forceinline__ void mul_shifted(const int* row, long long qd,
+                                            int s, int (&out)[NPT], int lane,
+                                            int W) {
+  long long p[NPT];
 #pragma unroll
   for (int j = 0; j < NPT; j++) {
     const int i = lane * NPT + j;
-    out[j] = (i < W && i >= s) ? row[i - s] : 0;
+    p[j] = (long long)(i < W && i >= s ? row[i - s] : 0) * qd;
   }
-  __syncwarp();
-}
-
-// out = x * qd * 2^(16 s) as balanced redundant limbs (x canonical,
-// 0 < qd < 2^kQBits: each product is below 2^56)
-template <int NPT>
-__device__ __forceinline__ void mul_shifted(const int (&x)[NPT], long long qd,
-                                            int s, int* row, int (&out)[NPT],
-                                            int lane, int W) {
-  int xs[NPT];
-  shift_up<NPT>(x, xs, s, row, lane, W);
-  long long p[NPT];
-#pragma unroll
-  for (int j = 0; j < NPT; j++) p[j] = (long long)xs[j] * qd;
+  __syncwarp();  // the row may be written again after this
   wl::spread_carry<NPT, 4>(p, out, lane, W);
   wl::carry_pass<NPT>(out, lane, W);
 }
 
-// forms._is_normal of canonical a, (bs, b)
 template <int NPT>
-__device__ __forceinline__ bool is_normal(const int (&a)[NPT],
-                                          const int (&b)[NPT], int bs,
-                                          int lane) {
-  const int cba = wl::mag_cmp<NPT>(b, a, lane);
-  return cba < 0 || (cba == 0 && bs >= 0);
+__device__ __forceinline__ void store_limbs(const int (&x)[NPT], int* row,
+                                            int lane) {
+#pragma unroll
+  for (int j = 0; j < NPT; j++) row[lane * NPT + j] = x[j];
 }
 
 // |q| = qd * 2^(16 s) ~ |b| / 2a from float64 estimates (|b| >= a > 0)
@@ -111,30 +119,37 @@ __global__ void __launch_bounds__(kWarps * 32)
                         int* __restrict__ bs_out, int* __restrict__ b_out,
                         int* __restrict__ c_out, int* __restrict__ iters_out,
                         int B, int L, int max_iters) {
-  __shared__ int rows[kWarps][32 * NPT];
+  __shared__ int rows[kWarps][3][32 * NPT];  // a, c and t of each lane
   const int warp = threadIdx.x >> 5;
   const int row = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= B) return;  // whole warp leaves together
-  int* srow = rows[warp];
+  int* ra = rows[warp][0];  // a's row (once stored); a rho swaps ra, rc
+  int* rc = rows[warp][1];
+  int* rt = rows[warp][2];
   const size_t off = (size_t)row * (size_t)L;
 
-  int a[NPT], b[NPT], c[NPT];
-  wl::load_row<NPT>(a, a_in + off, L, lane);
-  wl::load_row<NPT>(b, b_in + off, L, lane);
-  wl::load_row<NPT>(c, c_in + off, L, lane);
-  wl::canonicalize<NPT>(a, lane, L);
-  int bs = wl::canonicalize<NPT>(b, lane, L);
-  wl::canonicalize<NPT>(c, lane, L);
+  int x[3][NPT], sg[3];
+  wl::load_row<NPT>(x[0], a_in + off, L, lane);
+  wl::load_row<NPT>(x[1], b_in + off, L, lane);
+  wl::load_row<NPT>(x[2], c_in + off, L, lane);
+  wl::canonicalize_rows<NPT, 3>(x, sg, lane, L);
+  int(&a)[NPT] = x[0];
+  int(&b)[NPT] = x[1];
+  int(&c)[NPT] = x[2];
+  int bs = sg[1];
 
   int it = 0;
-  bool reduced = false;
+  bool reduced = false, translated = false, stored = false;
   for (;;) {
-    bool normal = is_normal<NPT>(a, b, bs, lane);
-    const int cac = wl::mag_cmp<NPT>(a, c, lane);
+    const int cba = wl::mag_cmp<NPT>(b, a, lane), cac = wl::mag_cmp<NPT>(a, c, lane),
+              cbc = wl::mag_cmp<NPT>(b, c, lane);
+    if (translated && bs < 0 && cba == 0) bs = 1;  // b = -a -> +a
+    bool normal = cba < 0 || (cba == 0 && bs >= 0);
     reduced = normal && (cac < 0 || (cac == 0 && bs >= 0));
     if (reduced || it >= max_iters) break;
     it++;
+    translated = false;
     if (normal) {  // rho: (a, b, c) -> (c, -b, a)
 #pragma unroll
       for (int j = 0; j < NPT; j++) {
@@ -142,32 +157,44 @@ __global__ void __launch_bounds__(kWarps * 32)
         a[j] = c[j];
         c[j] = t;
       }
+      int* t = ra;
+      ra = rc;
+      rc = t;
       bs = -bs;
-      normal = is_normal<NPT>(a, b, bs, lane);
+      normal = cbc < 0 || (cbc == 0 && bs >= 0);
     }
     if (normal) continue;
+    if (!stored) {  // a lane's first translation: a and c into their rows
+      store_limbs<NPT>(a, ra, lane);
+      store_limbs<NPT>(c, rc, lane);
+      __syncwarp();
+      stored = true;
+    }
     // translation by q = sq * qd * 2^(16 s), sq = sign(b)
     long long qd;
     int s;
     quotient<NPT>(a, b, lane, qd, s);
     const int sq = bs;
-    int aq[NPT], nb[NPT], t[NPT], u[NPT];
-    mul_shifted<NPT>(a, qd, s, srow, aq, lane, L);  // a |q|
+    int aq[NPT], u[NPT], v[2][NPT], vs[2];
+    mul_shifted<NPT>(ra, qd, s, aq, lane, L);  // a |q|
 #pragma unroll
     for (int j = 0; j < NPT; j++) {
-      nb[j] = bs * b[j] - 2 * sq * aq[j];  // b - 2 a q
-      t[j] = sq * aq[j] - bs * b[j];       // a q - b
+      v[0][j] = bs * b[j] - 2 * sq * aq[j];  // nb = b - 2 a q
+      v[1][j] = sq * aq[j] - bs * b[j];      // t = a q - b
     }
-    int nbs = wl::canonicalize<NPT>(nb, lane, L);
-    const int ts = wl::canonicalize<NPT>(t, lane, L);
-    mul_shifted<NPT>(t, qd, s, srow, u, lane, L);  // |a q - b| |q|
+    wl::canonicalize_rows<NPT, 2>(v, vs, lane, L);
+    store_limbs<NPT>(v[1], rt, lane);
+    __syncwarp();
+    mul_shifted<NPT>(rt, qd, s, u, lane, L);  // |a q - b| |q|
 #pragma unroll
-    for (int j = 0; j < NPT; j++) c[j] += sq * ts * u[j];
+    for (int j = 0; j < NPT; j++) c[j] += sq * vs[1] * u[j];
     wl::canonicalize<NPT>(c, lane, L);
-    if (nbs < 0 && wl::mag_cmp<NPT>(nb, a, lane) == 0) nbs = 1;
+    store_limbs<NPT>(c, rc, lane);
+    __syncwarp();
 #pragma unroll
-    for (int j = 0; j < NPT; j++) b[j] = nb[j];
-    bs = nbs;
+    for (int j = 0; j < NPT; j++) b[j] = v[0][j];
+    bs = vs[0];
+    translated = true;
   }
   if (iters_out != nullptr && lane == 0)
     iters_out[row] = reduced ? it : max_iters + 1;

@@ -125,18 +125,18 @@ __device__ __forceinline__ void floor_pass(int (&x)[NPT], int lane, int W) {
   }
 }
 
-// Maps {-1,0,1} -> {-1,0,1} coded as 9*(f(-1)+1) + 3*(f(0)+1) + (f(1)+1).
-__device__ __forceinline__ int map_apply(int code, int c) {
-  int v = c < 0 ? code / 9 : (c > 0 ? code % 3 : (code / 3) % 3);
-  return v - 1;
+// A carry map f: {-1, 0, 1} -> {-1, 0, 1} as f(c) + 1 in bits 2 (c + 1) ..
+// 2 (c + 1) + 1 of an int, so that applying and composing maps are shifts
+// and masks; WL_ID_MAP is the identity.
+__device__ __forceinline__ int map_apply(int f, int c) {
+  return ((f >> (2 * (c + 1))) & 3) - 1;
 }
-// code of (g o h)
+// g o h
 __device__ __forceinline__ int map_compose(int g, int h) {
-  return 9 * (map_apply(g, map_apply(h, -1)) + 1) +
-         3 * (map_apply(g, map_apply(h, 0)) + 1) +
-         (map_apply(g, map_apply(h, 1)) + 1);
+  return ((g >> (2 * (h & 3))) & 3) | (((g >> (2 * ((h >> 2) & 3))) & 3) << 2) |
+         (((g >> (2 * ((h >> 4) & 3))) & 3) << 4);
 }
-#define WL_ID_MAP 5
+#define WL_ID_MAP (0 | 1 << 2 | 2 << 4)
 
 // 2^(16 W) - x mod 2^(16 W) of canonical limbs x: zeros below the lowest
 // nonzero limb, 2^16 - limb there, 2^16 - 1 - limb above.
@@ -160,57 +160,111 @@ __device__ __forceinline__ void negate_canonical(int (&x)[NPT], int lane, int W)
   }
 }
 
-// limb.canonicalize_fast: redundant signed limbs (|value| < 2^(16 W)) ->
-// (sign, canonical magnitude in x). Two floor passes bound the lower limbs
-// to [-1, 2^16]; each lower limb's carry-out is then a map of its carry-in;
-// a warp scan over the per-thread composed maps gives every carry.
-template <int NPT>
-__device__ __forceinline__ int canonicalize(int (&x)[NPT], int lane, int W) {
-  floor_pass<NPT>(x, lane, W);
-  floor_pass<NPT>(x, lane, W);
-  int tmap = WL_ID_MAP;
+// limb.canonicalize_fast of N rows at once: redundant signed limbs
+// (|value| < 2^(16 W)) -> canonical magnitudes in x, signs in sg. Two floor
+// passes bound the lower limbs to [-1, 2^16]; each lower limb's carry-out
+// is then a map of its carry-in; a warp scan over the per-thread composed
+// maps gives every carry. The rows' collectives run side by side (one
+// shuffle level for all of them), the negation of a negative row is a
+// select, and the row's nonzero ballot gives both the negation's start and
+// the sign.
+template <int NPT, int N>
+__device__ __forceinline__ void canonicalize_rows(int (&x)[N][NPT],
+                                                  int (&sg)[N], int lane,
+                                                  int W) {
 #pragma unroll
-  for (int j = 0; j < NPT; j++) {
-    int i = lane * NPT + j;
-    if (i < W - 1) {
-      int v = x[j];
-      int code = 9 * (((v - 1) >> 16) + 1) + 3 * ((v >> 16) + 1) +
-                 (((v + 1) >> 16) + 1);
-      tmap = map_compose(code, tmap);
+  for (int pass = 0; pass < 2; pass++) {  // floor_pass on every row
+    int cin[N];
+#pragma unroll
+    for (int r = 0; r < N; r++)
+      cin[r] = __shfl_up_sync(WL_FULL, x[r][NPT - 1] >> 16, 1);
+#pragma unroll
+    for (int r = 0; r < N; r++) {
+      int prev = lane == 0 ? 0 : cin[r];
+#pragma unroll
+      for (int j = 0; j < NPT; j++) {
+        const int i = lane * NPT + j, v = x[r][j], c = v >> 16;
+        x[r][j] = i < W - 1 ? (v & 0xFFFF) + prev : (i == W - 1 ? v + prev : 0);
+        prev = c;
+      }
+    }
+  }
+  int tm[N];  // each thread's composed carry map
+#pragma unroll
+  for (int r = 0; r < N; r++) {
+    tm[r] = WL_ID_MAP;
+#pragma unroll
+    for (int j = 0; j < NPT; j++) {
+      if (lane * NPT + j < W - 1) {  // limb v's carry out for each carry in
+        const int v = x[r][j];
+        const int f = (((v - 1) >> 16) + 1) | (((v >> 16) + 1) << 2) |
+                      ((((v + 1) >> 16) + 1) << 4);
+        tm[r] = map_compose(f, tm[r]);
+      }
     }
   }
   // inclusive scan over threads: prefix_t = tmap_t o ... o tmap_0
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    int lower = __shfl_up_sync(WL_FULL, tmap, d);
-    if (lane >= d) tmap = map_compose(tmap, lower);
-  }
-  int below = __shfl_up_sync(WL_FULL, tmap, 1);
-  int c = lane == 0 ? 0 : map_apply(below, 0);
-  int final_c = 0;
-  int top_lane = (W - 1) / NPT;
+    int lower[N];
 #pragma unroll
-  for (int j = 0; j < NPT; j++) {
-    int i = lane * NPT + j;
-    int t = x[j] + c;
-    if (i < W) {
-      x[j] = t & 0xFFFF;
+    for (int r = 0; r < N; r++) lower[r] = __shfl_up_sync(WL_FULL, tm[r], d);
+#pragma unroll
+    for (int r = 0; r < N; r++)
+      if (lane >= d) tm[r] = map_compose(tm[r], lower[r]);
+  }
+  int below[N];
+#pragma unroll
+  for (int r = 0; r < N; r++) below[r] = __shfl_up_sync(WL_FULL, tm[r], 1);
+  const int top_lane = (W - 1) / NPT;
+  int fin[N];
+  bool mine[N];
+#pragma unroll
+  for (int r = 0; r < N; r++) {
+    int c = lane == 0 ? 0 : map_apply(below[r], 0);
+    fin[r] = 0;
+    mine[r] = false;
+#pragma unroll
+    for (int j = 0; j < NPT; j++) {
+      const int i = lane * NPT + j, t = x[r][j] + c;
+      x[r][j] = i < W ? t & 0xFFFF : 0;
       c = t >> 16;
-      if (i == W - 1) final_c = c;
-    } else {
-      x[j] = 0;
+      if (i == W - 1) fin[r] = c;
+      mine[r] |= x[r][j] != 0;
     }
   }
-  int is_neg = __shfl_sync(WL_FULL, final_c, top_lane) < 0;
-  if (is_neg) negate_canonical<NPT>(x, lane, W);  // 2^(16 W) - mag
-  bool nz = false;
+  bool neg[N];
+  uint32_t nz[N];
 #pragma unroll
-  for (int j = 0; j < NPT; j++) nz |= x[j] != 0;
-  bool any_nz = __any_sync(WL_FULL, nz);
-  return any_nz ? (is_neg ? -1 : 1) : 0;
+  for (int r = 0; r < N; r++) {
+    neg[r] = __shfl_sync(WL_FULL, fin[r], top_lane) < 0;
+    nz[r] = __ballot_sync(WL_FULL, mine[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < N; r++) {
+    // 2^(16 W) - mag where negative (negate_canonical as a select)
+    bool seen = (nz[r] & ((1u << lane) - 1u)) != 0;
+#pragma unroll
+    for (int j = 0; j < NPT; j++) {
+      const int v = x[r][j];
+      const int nv = seen ? 0xFFFF - v : (v != 0 ? 0x10000 - v : 0);
+      seen |= v != 0;
+      if (neg[r] && lane * NPT + j < W) x[r][j] = nv;
+    }
+    sg[r] = nz[r] == 0 ? 0 : (neg[r] ? -1 : 1);
+  }
 }
 
-// limb.mag_cmp of canonical magnitudes.
+// One row of canonicalize_rows; returns its sign.
+template <int NPT>
+__device__ __forceinline__ int canonicalize(int (&x)[NPT], int lane, int W) {
+  int sg[1];
+  canonicalize_rows<NPT, 1>(reinterpret_cast<int(&)[1][NPT]>(x), sg, lane, W);
+  return sg[0];
+}
+
+// limb.mag_cmp of canonical magnitudes, from two independent ballots (where
+// the highest differing limb is, and whether it is greater there).
 template <int NPT>
 __device__ __forceinline__ int mag_cmp(const int (&a)[NPT],
                                        const int (&b)[NPT], int lane) {
@@ -219,9 +273,10 @@ __device__ __forceinline__ int mag_cmp(const int (&a)[NPT],
   for (int j = 0; j < NPT; j++) {
     if (a[j] != b[j]) res = a[j] > b[j] ? 1 : -1;  // highest slot wins
   }
-  uint32_t has = __ballot_sync(WL_FULL, res != 0);
+  const uint32_t has = __ballot_sync(WL_FULL, res != 0);
+  const uint32_t gt = __ballot_sync(WL_FULL, res > 0);
   if (has == 0) return 0;
-  return __shfl_sync(WL_FULL, res, 31 - __clz(has));
+  return (gt >> (31 - __clz(has))) & 1u ? 1 : -1;
 }
 
 // rl.value_est: value ~= mant * 2^(16 top) for balanced limbs; (0, 0) for 0.
@@ -256,7 +311,9 @@ __device__ __forceinline__ double pow2d(long long e) {
 
 // rl.value_est_wide: value ~= mant * 2^(16 top) from the top four limbs,
 // the top three summed exactly in int64 and the fourth added in f64, so
-// every thread (and the plain version) gets the same double.
+// every thread (and the plain version) gets the same double. The top four
+// limbs lie on at most kSrc threads, read by a fixed number of shuffles
+// (straight-line code, so two estimates side by side interleave).
 template <int NPT>
 __device__ __forceinline__ void value_est_wide(const int (&x)[NPT], int lane,
                                                double& mant, int& top) {
@@ -273,12 +330,18 @@ __device__ __forceinline__ void value_est_wide(const int (&x)[NPT], int lane,
     if (k >= 0 && k <= 2) p += (long long)x[j] * (1LL << (16 * (2 - k)));
     if (k == 3) q = x[j];
   }
-  const int lo = top >= 3 ? top - 3 : 0;
+  constexpr int kSrc = (3 + NPT - 1) / NPT + 1;
+  const int first = (top >= 3 ? top - 3 : 0) / NPT;
   long long ps = 0;
   int qs = 0;
-  for (int src = lo / NPT; src <= top / NPT; src++) {  // warp-uniform
-    ps += __shfl_sync(WL_FULL, p, src);
-    qs += __shfl_sync(WL_FULL, q, src);
+#pragma unroll
+  for (int k = 0; k < kSrc; k++) {  // warp-uniform
+    const long long pk = __shfl_sync(WL_FULL, p, first + k);
+    const int qk = __shfl_sync(WL_FULL, q, first + k);
+    if (first + k <= top / NPT) {
+      ps += pk;
+      qs += qk;
+    }
   }
   mant = ((double)ps + (double)qs * 1.52587890625e-05) *
          2.3283064365386962890625e-10;

@@ -3,7 +3,8 @@ cofhe_tpu/ops/pallas_group.py).
 
 Seven kernels, CUDA C++ for sm_90a under cofhe_tpu_torch/csrc/, built with
 nvcc into plain-C shared libraries at first use and bound with ctypes. Each
-gives one warp to one batch row; the source notes say more.
+gives one warp to one batch row (K5m up to four at small batches); the
+source notes say more.
 
 * K1 `xgcd_coeff_g` (csrc/xgcd_coeff_g.cu) replaces
   pallas_group.py::xgcd_coeff_g: Bernstein-Yang divsteps, d = gcd(f, g)
@@ -28,14 +29,16 @@ gives one warp to one batch row; the source notes say more.
   forms.py::reduce_batch, the exact tail after K3: canonicalizes K3's
   redundant rows and takes each lane to its unique reduced form by rho
   steps and translations with the kernel's own quotients (up to 40 bits
-  a step, from float64 estimates). Its plain version is
+  a step, from float64 estimates), several rows' canonicalizations and
+  compares side by side. Its plain version is
   `reduce_exact_plain` (canonicalize, then ops/forms.py::reduce_batch);
   reduced forms are unique, so the two agree bit for bit although their
   step sequences differ.
 
 * K5m `mag_mul` (csrc/mag_mul.cu) replaces the XLA product of
-  limb.py::_poly_mul8 / mag_mul: a * b mod 2^(16 L_out) from 64-bit
-  column sums; its plain version is limb.mag_mul_plain (a float64 FFT).
+  limb.py::_poly_mul8 / mag_mul: a * b mod 2^(16 L_out), its 8-bit limb
+  products on the tensor cores (Toeplitz tiles through integer mma.sync,
+  m16n8k32 u8); its plain version is limb.mag_mul_plain (a float64 FFT).
 * K5d `divexact_odd` (csrc/divexact_odd.cu) replaces the XLA Hensel scan
   of limb.py::mag_divexact_odd: x * y^-1 mod 2^(16 L_out) for odd y, LSB
   first from its own 16-bit inverse; its plain version is
@@ -47,7 +50,7 @@ gives one warp to one batch row; the source notes say more.
 
 The main path runs 97% of K2's and K3's launches at 128-256 lanes, where a
 kernel's time is the latency of one warp's loop rather than the card's
-rate; every kernel runs four lanes a block. The earlier plain versions,
+rate; every kernel runs four warps a block. The earlier plain versions,
 rl.mod_topdown and forms2.grouped_rho_loop, stay as references.
 
 The dispatchers `xgcd_coeff_g`, `mod_topdown`, `reduce2_grouped_loop`,

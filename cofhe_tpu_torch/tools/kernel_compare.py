@@ -6,15 +6,18 @@ directory, on the operands the main path really passes, on one CUDA card.
 DIR holds the earlier sources of the kernels (and warp_limbs.cuh) with
 this checkout's C entry points (cuda_group._ARGTYPES); for example an
 unpacked `git archive <commit> cofhe_tpu_torch/csrc`. A kernel whose
-source DIR lacks (KT, K5d or K4 before they existed) is compared with
-nothing, and so is K5m, which this script does not call. The earlier K1 is
+source DIR lacks (KT, K5m, K5d or K4 before they existed) is compared
+with nothing. The earlier K1 is
 the 13-divstep kernel: it gets its loop cap in 13-step groups (a cap that
 also covers any kernel of longer groups, whose loop ends once g is zero),
 and its trips count 13 divsteps a group. Where an earlier kernel is the
 same source as this checkout's, its pair of times shows the spread of the
 measurement. From the root of a checkout, the script:
 
-1. builds this checkout's kernels and the earlier ones side by side;
+1. builds this checkout's kernels and the earlier ones side by side, and
+   counts the tensor-core products (IMMA), warp collectives (SHFL, VOTE,
+   REDUX), shared atomics and barriers in the SASS of each K5m and KT
+   instance of both (cuobjdump -sass);
 2. drives chip_smoke's main path once (its checks included) and its graph
    against eager decrypt, recording the operands of one decrypt, chain
    and ladder compose2;
@@ -23,12 +26,15 @@ measurement. From the root of a checkout, the script:
    checkout's kernels), with this checkout's kernels and with the earlier
    ones: seconds, and whether the outputs equal the main run's;
 4. on each recorded operand, checks that both kernels agree (K1, K2, KT,
-   K5d and K4 bit for bit, K3 after the exact tail) and times them in
+   K5m, K5d and K4 bit for bit, K3 after the exact tail) and times them in
    turns (earlier, this, this, earlier), with each one's trips and bound
    (the earlier K1's at its 13-divstep per-limb count, the others at this
-   checkout's counts; K5d's and K4's bound is the function's own, the same
-   for both);
-5. profiles one eager compose2 at 128 lanes with each set of kernels.
+   checkout's counts; K5m's, K5d's and K4's bound is the function's own,
+   the same for both);
+5. times K5m and KT against the baseline's on chip_smoke's synthetic
+   operands at 128, 1001 and 16384 lanes (K5m at compose2's product
+   shapes; KT with and without deep-tail lanes, and on reduced forms);
+6. profiles one eager compose2 at 128 lanes with each set of kernels.
 
 Any disagreement raises. chip_smoke.py stays the check the port must pass;
 this script only measures.
@@ -126,6 +132,17 @@ class Baseline:
                    self._ptr(iters), a.shape[0], a.shape[1], int(max_iters))
         return self.cgp.BForm(ao, bs, bo, co)
 
+    def mag_mul(self, torch, ma, mb, L_out=None):
+        La, Lb = ma.shape[-1], mb.shape[-1]
+        L_out = La + Lb if L_out is None else L_out
+        ma, mb, lead = self.cgp._broadcast("mag_mul", ma, mb)
+        a, sa = self.cgp._rows("mag_mul", ma)
+        b, sb = self.cgp._rows("mag_mul", mb, a)
+        out = torch.empty((a.shape[0], L_out), dtype=torch.int32, device=a.device)
+        self._call(torch, "mag_mul", a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                   a.shape[0], La, Lb, sa, sb, L_out)
+        return out.reshape(*lead, L_out)
+
     def divexact_odd(self, torch, x, y, L_out):
         Lx, Ly = x.shape[-1], y.shape[-1]
         x, y, lead = self.cgp._broadcast("mag_divexact_odd", x, y)
@@ -149,7 +166,8 @@ class Baseline:
 # cuda_group's wrapper for each kernel
 WRAPPER = {"xgcd_coeff_g": "xgcd_coeff_g_cuda", "mod_topdown": "mod_topdown_cuda",
            "reduce2_grouped": "reduce2_grouped_loop_cuda",
-           "reduce_exact": "reduce_exact_cuda", "divexact_odd": "mag_divexact_odd_cuda",
+           "reduce_exact": "reduce_exact_cuda", "mag_mul": "mag_mul_cuda",
+           "divexact_odd": "mag_divexact_odd_cuda",
            "redc_mod": "redc_mod_cuda"}
 
 
@@ -201,6 +219,71 @@ def matmul_again(torch, smoke, cgp, base, main) -> None:
                 smoke.fail(f"the matmul again with {label} gave other ciphertexts")
     finally:
         cg.graphs = graphs
+
+
+def in_turns(torch, smoke, new_fn, old_fn):
+    """Times the two kernels in turns, earlier, this, this, earlier: (this
+    ms, earlier ms, {"new": [ms, ms], "old": [ms, ms]}, calls a turn). A
+    first timing warms the card and sizes each turn to >= 20 ms of calls,
+    at most MAX_TURN_CALLS of them."""
+    reps = min(MAX_TURN_CALLS,
+               max(smoke.TIMING_REPS, int(20.0 / smoke.timed(torch, new_fn, 3))))
+    t = {"new": [], "old": []}
+    for turn, fn in (("old", old_fn), ("new", new_fn), ("new", new_fn), ("old", old_fn)):
+        t[turn].append(smoke.timed(torch, fn, reps))
+    return sum(t["new"]) / 2, sum(t["old"]) / 2, t, reps
+
+
+def compare_synthetic(torch, smoke, cgp, port, base, cg, gmp, hsm, rng) -> None:
+    """K5m at compose2's product shapes and KT on chip_smoke's synthetic
+    operands at 128, 1001 and 16384 lanes, this checkout's kernel against
+    the baseline's, bit for bit and in turns: K5m on random operands
+    (chip_smoke.k5m_operands); KT on K3's outputs of compose2 operand
+    pairs with deep-tail lanes (self-composes, inverse pairs, powers of f;
+    chip_smoke.kt_operands), without them, and on forms that are reduced
+    already (no step: load, canonicalize, compare, store)."""
+    def line(label, ms, old_ms, t, reps, extra=""):
+        smoke.log(f"synthetic {label}: this kernel {ms:.4f} ms, baseline {old_ms:.4f} ms, "
+                  f"{old_ms / ms:.2f}x; turns {t['old'][0]:.4f} {t['new'][0]:.4f} "
+                  f"{t['new'][1]:.4f} {t['old'][1]:.4f} ms, {reps} calls each{extra}")
+
+    forms = gmp.nupow_batch([hsm.h] * 64, [rng.getrandbits(1100) for _ in range(64)])
+    for B in (smoke.SMALL_B, smoke.RAGGED_B, smoke.KERNEL_B):
+        for La, Lb, Lo in (smoke.K5M_SHAPES if "mag_mul" in base.kernels else ()):
+            av, bv = smoke.k5m_operands(rng, B, La, Lb, False)
+            a, b = smoke._limbs(torch, port.lb, av, La), smoke._limbs(torch, port.lb, bv, Lb)
+            if smoke.max_abs_diff(torch, [base.mag_mul(torch, a, b, Lo)],
+                                  [cgp.mag_mul_cuda(a, b, Lo)]):
+                smoke.fail(f"synthetic K5m {La}x{Lb}->{Lo} B={B}: the baseline disagrees")
+            bnd = smoke.k5m_bound(B, La, Lb, Lo)[0]
+            ms, old_ms, t, reps = in_turns(torch, smoke, lambda: cgp.mag_mul_cuda(a, b, Lo),
+                                           lambda: base.mag_mul(torch, a, b, Lo))
+            line(f"mag_mul[La={La},Lb={Lb},L_out={Lo}]@B={B}", ms, old_ms, t, reps,
+                 f"; bound {bnd:.5f} ms, {bnd / ms:.1%} / {bnd / old_ms:.1%} of it")
+        if "reduce_exact" not in base.kernels:
+            continue
+        cap = cg.tail_iters
+        for label in ("deep-tail", "compose", "reduced"):
+            if label == "reduced":
+                e = port.bform_from_forms([forms[rng.randrange(64)] for _ in range(B)],
+                                          cg.L, "cuda")
+                raw = (e.a, e.b_sign[:, None] * e.b, e.c)
+            else:
+                _, _, raw = smoke.kt_operands(cgp, cg, hsm, port, rng, forms, B,
+                                              deep=label == "deep-tail")
+            it_new = torch.zeros(B, dtype=torch.int32, device="cuda")
+            it_old = torch.zeros_like(it_new)
+            got = cgp.reduce_exact_cuda(*raw, cap, iters=it_new)
+            old = base.reduce_exact(torch, *raw, cap, iters=it_old)
+            if smoke.max_abs_diff(torch, got, old) or not torch.equal(it_new, it_old):
+                smoke.fail(f"synthetic KT {label} B={B}: the baseline disagrees")
+            ops = float(it_new.long().sum()) * cg.L * smoke.OPS_KT
+            bnd = smoke.bound(ops, 4.0 * B * (6 * cg.L + 2))[0]
+            ms, old_ms, t, reps = in_turns(torch, smoke, lambda: cgp.reduce_exact_cuda(*raw, cap),
+                                           lambda: base.reduce_exact(torch, *raw, cap))
+            line(f"reduce_exact[W={cg.L},{label}]@B={B}", ms, old_ms, t, reps,
+                 f"; steps {smoke._stats(it_new)} (both), sum {int(it_new.long().sum())}; "
+                 f"bound {bnd:.5f} ms, {bnd / ms:.1%} / {bnd / old_ms:.1%} of it")
 
 
 def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
@@ -263,6 +346,16 @@ def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
         trips_new, trips_old = smoke._stats(it_new), smoke._stats(it_old)
         tails = (f", exact-tail steps {int(t_new.long().sum())} (baseline "
                  f"{int(t_old.long().sum())})")
+    elif name == "mag_mul":
+        a, b, Lo = args
+        if smoke.max_abs_diff(torch, [base.mag_mul(torch, a, b, Lo)],
+                              [cgp.mag_mul_cuda(a, b, Lo)]):
+            smoke.fail(f"{name}[W={W}]@B={B}: the baseline kernel disagrees")
+        new_fn = lambda: cgp.mag_mul_cuda(a, b, Lo)  # noqa: E731
+        old_fn = lambda: base.mag_mul(torch, a, b, Lo)  # noqa: E731
+        bnd = smoke.k5m_bound(B, a.shape[-1], b.shape[-1], Lo)
+        trips_new = trips_old = (f"{a.shape[-1]}x{b.shape[-1]}, "
+                                 f"{smoke.k5m_pairs(a.shape[-1], b.shape[-1], Lo)} limb products")
     elif name == "divexact_odd":
         x, y, Lo = args
         if smoke.max_abs_diff(torch, [base.divexact_odd(torch, x, y, Lo)],
@@ -294,15 +387,8 @@ def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
         old_ops = float(it_old.long().sum()) * W * smoke.OPS_KT
         nbytes = 4.0 * B * (6 * W + 2)
         trips_new, trips_old = smoke._stats(it_new), smoke._stats(it_old)
-    # a first timing warms the card and sizes each turn to >= 20 ms of calls,
-    # at most MAX_TURN_CALLS of them
-    reps = min(MAX_TURN_CALLS,
-               max(smoke.TIMING_REPS, int(20.0 / smoke.timed(torch, new_fn, 3))))
-    t = {"new": [], "old": []}
-    for turn, fn in (("old", old_fn), ("new", new_fn), ("new", new_fn), ("old", old_fn)):
-        t[turn].append(smoke.timed(torch, fn, reps))
-    ms, old_ms = sum(t["new"]) / 2, sum(t["old"]) / 2
-    if name in ("divexact_odd", "redc_mod"):
+    ms, old_ms, t, reps = in_turns(torch, smoke, new_fn, old_fn)
+    if name in ("mag_mul", "divexact_odd", "redc_mod"):
         bms = old_bms = bnd[0]
     else:
         bms, old_bms = smoke.bound(new_ops, nbytes)[0], smoke.bound(old_ops, nbytes)[0]
@@ -312,6 +398,22 @@ def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
               f"{old_bms:.5f} ms, {old_bms / old_ms:.1%} of it), {old_ms / ms:.2f}x; "
               f"turns {t['old'][0]:.4f} {t['new'][0]:.4f} {t['new'][1]:.4f} "
               f"{t['old'][1]:.4f} ms, {reps} calls each" + tails)
+
+
+def sass_compare(smoke, cgp, base) -> None:
+    """SASS counts (smoke.SASS_OPS) of each K5m and KT instance, this
+    checkout's and the baseline's."""
+    for label, path in (("this checkout", cgp._lib_path),
+                        ("baseline", lambda n: os.path.join(base.out_dir, f"lib{n}.so"))):
+        for name in ("mag_mul", "reduce_exact"):
+            if label == "baseline" and name not in base.kernels:
+                continue
+            for fn, body in sorted(smoke.sass_functions(cgp._nvcc(), path(name)).items()):
+                inst = smoke.kernel_instance(fn)
+                if inst is not None:
+                    cnt = smoke.sass_counts(body)
+                    smoke.log(f"sass {label} {inst[0]}_kernel<{', '.join(map(str, inst[1]))}>: "
+                              + ", ".join(f"{op} {n}" for op, n in cnt.items()))
 
 
 def main() -> int:
@@ -341,6 +443,7 @@ def main() -> int:
     base.finish()
     smoke.report_build(cgp)
     smoke.log(f"baseline kernels built from {opts.baseline_csrc}")
+    sass_compare(smoke, cgp, base)
 
     rng = random.Random(smoke.SEED)
     hsm = port.CLHSM2k(smoke.SEC, smoke.K)
@@ -358,6 +461,7 @@ def main() -> int:
     with torch.inference_mode():
         for key in sorted(rec.ops, key=lambda k: (k[3], k[0], k[1])):
             compare_row(torch, smoke, cgp, cg, base, key, rec.ops[key])
+        compare_synthetic(torch, smoke, cgp, port, base, cg, gmp, hsm, rng)
     ecg = port.TorchEngine(hsm, "cuda", graphs=False).cg
     smoke.profile_compose(torch, ecg, gmp, hsm, port.bform_from_forms, rng,
                           "this checkout's kernels, eager")

@@ -217,7 +217,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(world: int, inputs: str, out_dir: str, *, device: str = "cpu",
+def launch(world: int, inputs: str, out_dir: str, *, device: str = "cuda",
            backend: str | None = None, dp: int | None = None,
            tp: int | None = None, timeout_s: float = 600.0) -> list[dict]:
     """Run `world` ranks on `inputs`, logs and outputs under out_dir; the

@@ -207,3 +207,26 @@ def test_two_ranks_dp2_tp1_split_the_stacked_rows(mesh_inputs, tmp_path):
     assert [o["coord"] for o in outs] == [(0, 0), (1, 0)]
     _check(outs, jax_out, one, ("matmul", "add"))
     assert mesh_check.check_outputs(outs, path) == []
+
+
+def test_launch_defaults_to_the_card(tmp_path, monkeypatch):
+    """mesh_check.launch without device= starts its ranks with --device
+    cuda, as its command line does."""
+    import pickle
+
+    cmds = []
+
+    class FakeRank:
+        def __init__(self, cmd, **kw):
+            cmds.append(cmd)
+            out = cmd[cmd.index("--out") + 1]
+            with open(out, "wb") as f:
+                pickle.dump({"rank": int(cmd[cmd.index("--rank") + 1])}, f)
+
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(mesh_check.subprocess, "Popen", FakeRank)
+    outs = mesh_check.launch(2, str(tmp_path / "inputs.pkl"), str(tmp_path))
+    assert [o["rank"] for o in outs] == [0, 1]
+    assert [c[c.index("--device") + 1] for c in cmds] == ["cuda", "cuda"]
