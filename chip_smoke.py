@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py       # from the root of a checkout
 
-1. Builds the seven Hopper kernels from cofhe_tpu_torch/csrc with nvcc
+1. Builds the eight Hopper kernels from cofhe_tpu_torch/csrc with nvcc
    (one nvcc a source, all started together) and holds each one against
    its plain torch version on the card, at the shapes the main path gives
    it and at 128, 1001 and 16384 lanes (bit-exact, and against Python
@@ -30,6 +30,12 @@
    and on edge cases (b = -a, a = c with b < 0, a > c, reduced forms, and
    forms of the discriminant translated by quotients of up to ~600 bits)
    the Python oracle's and GMP's reduced forms; no lane may reach its cap.
+   K7, the NUCOMP tail's Lehmer walk, runs on the walk operands of real
+   compose2 pairs (2m2, mu and the stop bits of a NUCOMP CG) at 128, 1001
+   and 16384 lanes, and at 128 lanes on edge lanes at widths 16, 24, 32,
+   40 and 144 (quotient gaps past 2^13, inactive lanes, lanes finished at
+   entry, stopped by the y cap, cut at the group cap): its seven outputs
+   and its groups a lane must equal its plain version's bit for bit.
 2. Drives the main path once at sec=128, k=128 through the facade:
    keygen, encrypt_tensor ct(2x64), scal_ciphertext_tensors with pt(64x64)
    (16384 ladder lanes), decrypt_tensor; every plaintext must equal the
@@ -43,7 +49,7 @@
    The main path's 128 ciphertexts are then decrypted once more by graph
    replays and once by an eager engine (graphs=False): the c1^sk forms and
    the plaintexts must be bit-identical, and the launch counts of all
-   seven kernels equal; both wall times are printed. Operands are recorded from
+   eight kernels equal; both wall times are printed. Operands are recorded from
    the eager calls (a replay calls no wrapper): one decrypt compose2 (128
    lanes) from the eager decrypt, one chain (256) and one ladder (16384)
    compose2 from the graphs' warm-ups. K1 is then checked again, with and
@@ -79,20 +85,26 @@
    ladder at 8192 lanes and none at 16384, and its gathers must be > 0.
 6. The legacy path at sec=128, k=128 on 128 of the main path's
    ciphertexts (c1 and c2 forms), the opt-in and legacy code of the JAX
-   package: NUCOMP compose2 and nudupl2 (CG(..., use_nucomp=True), whose
-   reduction runs K3 at width Ln = 272) must equal the default compose2 /
+   package: NUCOMP compose2 and nudupl2 (CG(..., use_nucomp=True): K7
+   walks, then the reduction runs K3 and KT at width Ln = 272), as graph
+   replays and eagerly, must equal each other, the default compose2 /
    nudupl2 and GMP; nupow_shared_wnaf2 with a 128-bit exponent must equal
    the engine's bank + segments (part_decrypt_batch) and GMP's nupow; the
    v1 compose_batch / nudupl_batch (torch ops only, with ops/xgcd.py) must
    equal compose2 / nudupl2 and GMP, and one xgcd_mod batch math.gcd and
    the Bezout identity mod m. One compose2 on the same 128 forms is
-   profiled three ways: eager, as a graph replay, and with the NUCOMP
-   tail: wall and device time (the device's busy share), device time
-   split by kernel (the seven, and "other": what is left in torch ops),
-   device kernels and copies, and Lehmer groups.
+   profiled four ways: the default tail and the NUCOMP tail, each eager
+   and as a graph replay: wall and device time (the device's busy share),
+   device time split by kernel (the eight, and "other": what is left in
+   torch ops), device kernels and copies, and Lehmer groups a lane. Then
+   NUCOMP and default compose2, both by graph replay, on the same pairs
+   of the main path's forms at 128, 256 and 16384 lanes in turns
+   (default, NUCOMP, NUCOMP, default): equal outputs (and equal to GMP),
+   the time a call on the card's clock.
    Each path (main, engine ops, network, mesh, legacy) is driven with the
    launch counts set to 0 just before it and read just after (on the mesh:
-   each rank's, summed); every kernel must launch in each, and the counts
+   each rank's, summed); every kernel must launch in each (K7, the NUCOMP
+   tail's, in the legacy path, the one path that takes NUCOMP), and the counts
    by (kernel, batch) must equal those kept apart from them (each eager
    dispatcher call plus each graph replay's captured kernels,
    tools/mesh_check.count_calls), on each mesh rank too.
@@ -102,7 +114,8 @@
    trip counts (K1 in groups and in divsteps, KT in steps: its exact-tail
    iterations), time and bound (also at the earlier kernels' per-limb
    operation counts: the 13-divstep K1, the 24-bit-digit K2, the
-   2^12-budget K3), and K3 and KT at the legacy path's width 272. K5m,
+   2^12-budget K3), K3 and KT at the legacy path's width 272, and K7 at
+   the legacy path's NUCOMP operands. K5m,
    K5d and K4 also against Python integers, with the cuFFT route (their
    plain versions on the card) as each one's plain time.
 8. Prints the card's name and power limit, one JSON line with each
@@ -179,6 +192,18 @@ OPS_K1, OPS_K1_U, OPS_K2, OPS_K3 = 83 / 30, 46 / 30, 36, 147
 # register swap, so the count is an upper one
 OPS_KT = 170
 OPS_K1_OLD, OPS_K2_OLD, OPS_K3_OLD = 108 / 13, 20, 74
+# K7 per working group and limb: three ordered value estimates (12), the
+# 2x2 matrix on six rows (two products and a sum an output limb, 18) and
+# their six carry passes (30); a digit-step group costs ~75, an idle
+# group 48 and is not counted (the bound counts the groups the data needs)
+OPS_K7 = 60
+# K7's edge lanes at 128 lanes: (width, bits of r0, group cap); the NUCOMP
+# against default comparison's batches
+K7_EDGE = ((16, 220, 60), (24, 330, 80), (32, 440, 100), (40, 600, 110),
+           (144, 2100, 178))
+NUCOMP_B = (128, 256, 16384)
+# K7's device kernels (kernel A walks, kernel B finishes)
+K7_DEVICE = ("lehmer_euclid_walk_kernel", "lehmer_euclid_finish_kernel")
 # K5m, K5d and K4: a 16 x 16 -> 32-bit limb product with its 64-bit add
 # counts 3 (the add as 2); a row's carry resolution 25 a limb (the 64-bit
 # split 4, two floor passes 10, the carry ballots 4, the ripple and store
@@ -529,6 +554,96 @@ def check_kt(torch, cgp, cg, gmp, hsm, port, rng, B):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, err=0)
 
 
+def k7_edge_operands(torch, lb, rng, B, L, bits):
+    """(r0, r1, bits_stop, active) of B lanes at width L on the card: the
+    kinds of lane of tests/test_torch_lehmer_kernel.py (r0 = q r1 + small
+    with q > 2^13, r1 far below r0, finished at entry, r1 = r0, r1 = 1,
+    stopped by the y cap, never stopping above bits_stop so cut at the
+    group cap, inactive, finished at entry with rows that change under
+    every carry pass), the rest random."""
+    r0 = [rng.getrandbits(rng.randrange(bits // 2, bits)) | 1 for _ in range(B)]
+    r1 = [rng.randrange(1, x) for x in r0]
+    stop = [rng.choice((20.0, bits / 4, bits / 3 + 0.5)) for _ in range(B)]
+    for i in range(6):
+        r1[i] = rng.getrandbits(bits // 3) + 1
+        q = rng.getrandbits(rng.randrange(14, bits // 3)) | (1 << 14)
+        r0[i] = q * r1[i] + rng.randrange(r1[i])
+        stop[i] = 10.0
+    for i in (6, 7):
+        r1[i] = rng.getrandbits(rng.randrange(24, bits // 3)) + 1
+        stop[i] = 10.0
+    stop[8] = float(bits)
+    r1[9], r1[10] = r0[9], 1
+    r0[11], stop[11] = 1, 30.0
+    r0[12], r1[12], stop[12] = 0, r1[13], 5.0
+    stop[14] = stop[15] = -300.0
+    active = torch.ones(B, dtype=torch.bool)
+    active[16] = active[17] = False
+    for i, k in ((18, L - 2), (19, 3)):  # finished at entry, limbs 0x8000, 0x7fff,
+        # ...: each idle group's carry pass moves a carry one limb up
+        r0[i] = r1[i] = sum(0x7FFF << (16 * j) for j in range(1, k + 1)) + 0x8000
+        stop[i] = 16.0 * (k + 1) + 1.0
+    return (_limbs(torch, lb, r0, L), _limbs(torch, lb, r1, L),
+            torch.tensor(stop, dtype=torch.float32, device="cuda"), active.cuda())
+
+
+def k7_bound(iters, B, L):
+    """K7's bound: the working groups' operations at OPS_K7 a limb, and
+    r0, r1 in, the six rows out (with bits_stop, par and iters)."""
+    return bound(float(iters.long().sum()) * L * OPS_K7, 4.0 * B * (8 * L + 3))
+
+
+def k7_compare(torch, cgp, label, r0, r1, stop, max_groups, active=None):
+    """K7 against its plain version on the card: the seven outputs and the
+    groups a lane bit for bit. Returns K7's groups a lane."""
+    B = r0.shape[0]
+    it_k = torch.zeros(B, dtype=torch.int32, device="cuda")
+    it_p = torch.zeros(B, dtype=torch.int32, device="cuda")
+    got = cgp.lehmer_euclid_cuda(r0, r1, stop, max_groups, active=active, iters=it_k)
+    want = cgp.lehmer_euclid_plain(r0, r1, stop, max_groups, active=active, iters=it_p)
+    err = max_abs_diff(torch, got, want)
+    if err or not torch.equal(it_k, it_p):
+        fail(f"K7 {label}: differs from its plain version (max {err}, groups "
+             f"equal: {torch.equal(it_k, it_p)})")
+    return it_k
+
+
+def check_k7(torch, cgp, ncg, lb, gmp, hsm, bform_from_forms, rng, B):
+    """K7 on the Lehmer walk operands of B compose2 pairs of a NUCOMP CG
+    (compose2_unreduced, then lehmer_operands: what its tail passes) and,
+    at 128 lanes, on K7_EDGE's edge lanes: bit-exact against its plain
+    version, with its time and bound."""
+    base = gmp.nupow_batch([hsm.h] * 64, [rng.getrandbits(1100) for _ in range(64)])
+    f1 = [base[rng.randrange(64)] for _ in range(B)]
+    f2 = [base[rng.randrange(64)] for _ in range(B)]
+    b1 = bform_from_forms(f1, ncg.L, "cuda")
+    b2 = bform_from_forms(f2, ncg.L, "cuda")
+    with torch.inference_mode():
+        _, _, _, _, a1g, m2x2, mu, _, _ = ncg.compose2_unreduced(b1, b2)
+        r0, r1, stop = ncg.lehmer_operands(a1g, m2x2, mu)
+        r0, r1 = r0.contiguous(), r1.contiguous()
+        mg = ncg.eu_groups
+        iters = k7_compare(torch, cgp, f"B={B}", r0, r1, stop, mg)
+        if B == SMALL_B:
+            for L, bits, cap in K7_EDGE:
+                e0, e1, e_stop, e_act = k7_edge_operands(torch, lb, rng, B, L, bits)
+                e_it = k7_compare(torch, cgp, f"edge lanes L={L}", e0, e1, e_stop, cap,
+                                  active=e_act)
+                if int(e_it[14]) != cap or int(e_it[16]) != 0:
+                    fail(f"K7 edge lanes L={L}: the lane cut at the cap took "
+                         f"{int(e_it[14])} groups, the inactive one {int(e_it[16])}")
+            log(f"K7 lehmer_euclid edge lanes at widths {[e[0] for e in K7_EDGE]}, "
+                f"B={B}: bit-exact vs plain (outputs and groups a lane)")
+        ms = timed(torch, lambda: cgp.lehmer_euclid_cuda(r0, r1, stop, mg), TIMING_REPS)
+        plain_ms = timed(torch, lambda: cgp.lehmer_euclid_plain(r0, r1, stop, mg), 1,
+                         warm=False) if B != RAGGED_B else float("nan")
+    bms, by = k7_bound(iters, B, ncg.L)
+    log(f"K7 lehmer_euclid L={ncg.L} B={B} (compose2 walk operands): bit-exact vs "
+        f"plain, groups {_stats(iters)} (cap {mg}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {bms:.5f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, err=0)
+
+
 def _limbs(torch, lb, vals, L):
     return torch.as_tensor(lb.ints_to_limbs(vals, L)).to("cuda")
 
@@ -829,7 +944,7 @@ def check_limb_kernels(torch, cgp, lb, rng):
 
 
 class Recorder:
-    """Wraps the kernel wrappers of cuda_group (all seven, or the chosen
+    """Wraps the kernel wrappers of cuda_group (all eight, or the chosen
     ones): keeps the operands of the first eager call at each (kernel,
     width, extra, batch) key in the chosen (phase, batch) pairs. A graph
     replay calls no wrapper and a capture runs no kernel, so operands come
@@ -840,7 +955,7 @@ class Recorder:
     WANT = {("decrypt", 128), ("matmul", 256), ("matmul", 16384)}
     WRAPPERS = ("xgcd_coeff_g_cuda", "mod_topdown_cuda", "reduce2_grouped_loop_cuda",
                 "reduce_exact_cuda", "mag_mul_cuda", "mag_divexact_odd_cuda",
-                "redc_mod_cuda")
+                "redc_mod_cuda", "lehmer_euclid_cuda")
 
     def __init__(self, torch, cgp, want=None, wrappers=None):
         self.torch, self.cgp = torch, cgp
@@ -893,9 +1008,17 @@ class Recorder:
                       (x, d, steps, active))
             return orig["redc_mod_cuda"](x, d, steps, active)
 
+        def walk(r0, r1, stop, max_groups, sim_steps=8, active=None, iters=None):
+            rec._note(("lehmer_euclid", r0.shape[1], int(max_groups), r0.shape[0]),
+                      (r0, r1, stop, max_groups, active))
+            return orig["lehmer_euclid_cuda"](r0, r1, stop, max_groups,
+                                              sim_steps=sim_steps, active=active,
+                                              iters=iters)
+
         new = {"xgcd_coeff_g_cuda": xgcd, "mod_topdown_cuda": mod,
                "reduce2_grouped_loop_cuda": red, "reduce_exact_cuda": exact,
-               "mag_mul_cuda": mul, "mag_divexact_odd_cuda": quo, "redc_mod_cuda": redc}
+               "mag_mul_cuda": mul, "mag_divexact_odd_cuda": quo, "redc_mod_cuda": redc,
+               "lehmer_euclid_cuda": walk}
         for n in self.orig:
             setattr(self.cgp, n, new[n])
         return self
@@ -921,13 +1044,20 @@ def reset_counts(cgp) -> None:
     CALLS.clear()
 
 
-def check_path_launches(cgp, path: str):
-    """Every kernel launched in `path`'s run (graph replays counted), and
-    cuda_group's counts by (kernel, batch) equal to CALLS, counted apart
-    from them; returns (launches, launches by key)."""
+def path_kernels(cgp, nucomp: bool = False) -> list:
+    """The kernels a path must launch: all eight where it takes the NUCOMP
+    tail (the legacy path), else all but K7, the tail's Lehmer walk."""
+    return [n for n in cgp.KERNELS if nucomp or n != "lehmer_euclid"]
+
+
+def check_path_launches(cgp, path: str, nucomp: bool = False):
+    """Every kernel of the path (path_kernels) launched in `path`'s run
+    (graph replays counted), and cuda_group's counts by (kernel, batch)
+    equal to CALLS, counted apart from them; returns (launches, launches
+    by key)."""
     launches, by_key = dict(cgp.LAUNCHES), dict(cgp.LAUNCHES_BY_KEY)
-    for name, n in launches.items():
-        if n <= 0:
+    for name in path_kernels(cgp, nucomp):
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the {path}")
     by_batch: dict = {}
     for (name, _, _, batch), n in by_key.items():
@@ -1142,7 +1272,8 @@ def run_mesh(torch, cgp, port, main, ops):
                  f"the shard's {MESH_LADDER_B}-lane ladder")
     launches = {name: sum(o["launches"][name] for o in outs) for name in cgp.KERNELS}
     for name, n in launches.items():
-        if n <= 0 or any(o["launches"][name] <= 0 for o in outs):
+        if name in path_kernels(cgp) and (
+                n <= 0 or any(o["launches"][name] <= 0 for o in outs)):
             fail(f"kernel {name} was not launched on every mesh rank")
         for o in outs:  # the launches against the rank's count apart from them
             if o["launches"][name] != sum(v for k, v in o["calls"].items()
@@ -1261,7 +1392,7 @@ def run_network(torch, cgp, port, rng):
     if combo != (0, 1):
         fail(f"the opening round ran on CoFHE nodes {combo}, not (0, 1)")
     opened = [c for c in node0_calls if c[0] == OPENING_B]
-    if not opened or any(v <= 0 for v in opened[0][2].values()):
+    if not opened or any(opened[0][2][k] <= 0 for k in path_kernels(cgp)):
         fail(f"CoFHE node 0 did not part-decrypt the {OPENING_B}-ciphertext opening "
              f"on the card: {node0_calls}")
     at_opening = {}
@@ -1282,10 +1413,11 @@ def run_network(torch, cgp, port, rng):
 
 def run_legacy(torch, cgp, port, main, rng):
     """The opt-in and legacy code at full width on 128 of the main path's
-    ciphertexts: NUCOMP compose2 / nudupl2, nupow_shared_wnaf2, the v1
-    compose_batch / nudupl_batch and xgcd_mod, each against GMP and the
-    port's default paths. Returns the launches and the recorder (K3's
-    operands at width Ln)."""
+    ciphertexts: NUCOMP compose2 / nudupl2 (graph replays, and eagerly),
+    nupow_shared_wnaf2, the v1 compose_batch / nudupl_batch and xgcd_mod,
+    each against GMP and the port's default paths. Returns the launches,
+    the recorder (K3's operands at width Ln, K7's), the NUCOMP CGs and the
+    profiles' Lehmer groups."""
     from cofhe_tpu_torch.ops import forms, xgcd
     from cofhe_tpu_torch.ops.nupow2 import nupow_shared_wnaf2, wnaf_digits
     from cofhe_tpu_torch.utils.benchmark import PhaseTimer
@@ -1299,6 +1431,8 @@ def run_legacy(torch, cgp, port, main, rng):
     b1 = port.bform_from_forms(f1, cg.L, "cuda")
     b2 = port.bform_from_forms(f2, cg.L, "cuda")
     ncg = port.f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True)
+    necg = port.f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True,
+                       graphs=False)
     spec = forms.FormSpec.for_disc_bits(cg.disc_bits)
     if spec.L != cg.L or ncg.Ln <= cg.L:
         fail(f"legacy widths: v1 L={spec.L}, compose2 L={cg.L}, Ln={ncg.Ln}")
@@ -1314,15 +1448,24 @@ def run_legacy(torch, cgp, port, main, rng):
     timer = PhaseTimer("cuda")
     phases = timer.phases
     rec = Recorder(torch, cgp, want={("legacy", LEGACY_B)},
-                   wrappers=Recorder.WRAPPERS[:4])
+                   wrappers=Recorder.WRAPPERS[:4] + ("lehmer_euclid_cuda",))
     rec.phase = "legacy"
     reset_counts(cgp)
     with rec, torch.inference_mode():
+        with timer("nucomp_compose2_first_s"):  # eager warm-up, capture, replay
+            ncg.compose2(b1, b2)
+            torch.cuda.synchronize()
         with timer("nucomp_compose2_s"):
             nc = ncg.compose2(b1, b2)
             torch.cuda.synchronize()
         with timer("nucomp_nudupl2_s"):
             nd = ncg.nudupl2(b1)
+            torch.cuda.synchronize()
+        with timer("nucomp_compose2_eager_s"):
+            nce = necg.compose2(b1, b2)
+            torch.cuda.synchronize()
+        with timer("nucomp_nudupl2_eager_s"):
+            nde = necg.nudupl2(b1)
             torch.cuda.synchronize()
         with timer("shared_wnaf_s"):
             wn = nupow_shared_wnaf2(cg, b1, sched)
@@ -1338,7 +1481,9 @@ def run_legacy(torch, cgp, port, main, rng):
                   for v in (xf, xg)]
             xo = xgcd.xgcd_mod(xl[0], xl[1], xl[0], spec.n_bits)
             torch.cuda.synchronize()
-    launches, by_key = check_path_launches(cgp, "legacy path")
+    launches, by_key = check_path_launches(cgp, "legacy path", nucomp=True)
+    if len(ncg.compose_graphs.graphs) != 1:
+        fail("the NUCOMP compose2 and nudupl2 did not replay one graph")
     for name in ("reduce2_grouped", "reduce_exact"):
         if not any(k[0] == name and k[1] == ncg.Ln for k in by_key):
             fail(f"the NUCOMP reduction did not launch {name} at width {ncg.Ln}")
@@ -1353,6 +1498,9 @@ def run_legacy(torch, cgp, port, main, rng):
         default["v1 nudupl_batch"] = default["NUCOMP nudupl2"]
         default["nupow_shared_wnaf2"] = port.bform_from_forms(
             eng.part_decrypt_batch(e, cts), cg.L, "cuda")
+        for name, eager in (("NUCOMP compose2", nce), ("NUCOMP nudupl2", nde)):
+            if max_abs_diff(torch, got[name][0], eager):
+                fail(f"legacy path: {name} by graph replay differs from eager")
         for name, (bf, want) in got.items():
             if port.bform_to_forms(bf) != want:
                 fail(f"legacy path: {name} differs from GMP")
@@ -1364,20 +1512,73 @@ def run_legacy(torch, cgp, port, main, rng):
                     or (u[i] * f + v[i] * g - d[i]) % f:
                 fail(f"legacy path: xgcd_mod lane {i} gives a wrong gcd or Bezout pair")
     log(f"legacy path ({LEGACY_B} lanes at sec={SEC} k={K}): NUCOMP compose2 and "
-        f"nudupl2 (K3 at width {ncg.Ln}), nupow_shared_wnaf2 ({LEGACY_EXP_BITS}-bit "
+        f"nudupl2 (K7, then K3 and KT at width {ncg.Ln}) by graph replay equal to "
+        f"eager, nupow_shared_wnaf2 ({LEGACY_EXP_BITS}-bit "
         f"exponent, {len(sched)} digits, {sum(x != 0 for x in sched)} nonzero), the v1 "
         f"compose_batch / nudupl_batch equal to GMP and to the default paths; xgcd_mod "
         f"({sum(x > 1 for x in d)} lanes with d > 1) equal to math.gcd with its Bezout "
         f"identity mod m; phase seconds: "
         + json.dumps({k: (round(x, 3) if isinstance(x, float) else x)
                       for k, x in phases.items()}))
+    report_graphs(ncg, "NUCOMP")
     seed = rng.getrandbits(64)  # every profile composes the same forms
     ecg = port.f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, graphs=False)
+    groups = None
     for c, label in ((ecg, "default tail, eager"), (cg, "default tail, graph replay"),
-                     (ncg, "NUCOMP tail")):
-        profile_compose(torch, c, gmp, hsm, port.bform_from_forms,
-                        random.Random(seed), label)
-    return launches, by_key, rec
+                     (necg, "NUCOMP tail, eager"), (ncg, "NUCOMP tail, graph replay")):
+        groups = profile_compose(torch, c, gmp, hsm, port.bform_from_forms,
+                                 random.Random(seed), label, groups=groups)
+    return launches, by_key, rec, ncg
+
+
+def compare_nucomp(torch, cgp, port, main, ncg, rng):
+    """NUCOMP against the default compose2, both by graph replay, on the
+    same pairs of the main path's forms at NUCOMP_B lanes: equal outputs
+    (the first 256 lanes equal to GMP), and the time a call on the card's
+    clock (CUDA events around replays, copies and clones included) in turns
+    default, NUCOMP, NUCOMP, default. Returns {B: (default ms, NUCOMP ms)}
+    (each the mean of its two turns) and the recorder of K7's operands
+    (one eager warm-up a batch)."""
+    cs = main["cs"]
+    cg = cs._engine.cg
+    gmp = port.hostgmp.GmpClassGroup(cs.hsm2k.Delta)
+    pool = [f for ct in main["ct"].data for f in (ct.c1, ct.c2)]
+    rec = Recorder(torch, cgp, want={("nucomp", B) for B in NUCOMP_B},
+                   wrappers=("lehmer_euclid_cuda",))
+    rec.phase = "nucomp"
+    out = {}
+    for B in NUCOMP_B:
+        f1 = [pool[rng.randrange(len(pool))] for _ in range(B)]
+        f2 = [pool[rng.randrange(len(pool))] for _ in range(B)]
+        b1 = port.bform_from_forms(f1, cg.L, "cuda")
+        b2 = port.bform_from_forms(f2, cg.L, "cuda")
+        before = cgp.LAUNCHES["lehmer_euclid"]
+        with rec, torch.inference_mode():
+            t = time.perf_counter()
+            nc = ncg.compose2(b1, b2)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t
+            if max_abs_diff(torch, nc, cg.compose2(b1, b2)):
+                fail(f"NUCOMP compose2 B={B} differs from the default compose2")
+            if port.bform_to_forms(nc)[:256] != gmp.compose_batch(f1[:256], f2[:256]):
+                fail(f"NUCOMP compose2 B={B} differs from GMP's composes")
+            reps = 5 if B == KERNEL_B else 20
+            turns = {"default": [], "nucomp": []}
+            for label in ("default", "nucomp", "nucomp", "default"):
+                c = cg if label == "default" else ncg
+                turns[label].append(timed(torch, lambda: c.compose2(b1, b2), reps))
+        if cgp.LAUNCHES["lehmer_euclid"] - before < 2 * reps:
+            fail(f"NUCOMP compose2 B={B}: K7 did not run in every replay")
+        d_ms, n_ms = (sum(turns[k]) / 2 for k in ("default", "nucomp"))
+        out[B] = (d_ms, n_ms)
+        log(f"NUCOMP against default compose2 B={B}, by graph replay: outputs equal "
+            f"(and to GMP); a call on the card's clock, turns default / NUCOMP / "
+            f"NUCOMP / default {turns['default'][0]:.4f} / {turns['nucomp'][0]:.4f} / "
+            f"{turns['nucomp'][1]:.4f} / {turns['default'][1]:.4f} ms: NUCOMP "
+            f"{n_ms / d_ms:.3f}x the default; NUCOMP's first call (eager warm-up, "
+            f"capture, replay) {first_s:.3f} s")
+    report_graphs(ncg, "NUCOMP")
+    return out, rec
 
 
 # --------------------------------------------------------- the kernel table
@@ -1435,6 +1636,15 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
         limbs = float(iters.long().sum()) * k2_window(m.shape[1])
         ops, old_ops = limbs * OPS_K2, limbs * OPS_K2_OLD
         nbytes = 4.0 * B * (2 * W + m.shape[1])
+    elif name == "lehmer_euclid":
+        r0, r1, stop, mg, active = args
+        iters = k7_compare(torch, cgp, row["name"], r0, r1, stop, mg, active)
+        row["max_abs_err"] = 0
+        fn = lambda: cgp.lehmer_euclid_cuda(r0, r1, stop, mg, active=active)  # noqa: E731
+        plain_ms = timed(torch, lambda: cgp.lehmer_euclid_plain(
+            r0, r1, stop, mg, active=active), 1, warm=False)
+        ops = float(iters.long().sum()) * W * OPS_K7
+        nbytes = 4.0 * B * (8 * W + 3)
     elif name == "reduce2_grouped":
         a, b, c, dD_mant, dD_top, red_iters = args
         got = cgp.reduce2_grouped_loop_cuda(a, b, c, dD_mant, dD_top, red_iters, iters=iters)
@@ -1504,6 +1714,8 @@ def row_name(key) -> str:
         shape = f"Lx={W},Ld={extra}"
     elif name in ("xgcd_coeff_g", "mod_topdown"):
         shape = f"W={W},{'nbits' if name == 'xgcd_coeff_g' else 'Lm'}={extra}"
+    elif name == "lehmer_euclid":
+        shape = f"L={W},max_groups={extra}"
     else:
         shape = f"W={W}"
     return f"{name}[{shape}]@B={B}"
@@ -1566,13 +1778,15 @@ def decrypt_k1_lanes(lb, rec):
 
 
 class LehmerCount:
-    """Records each lane's working groups of the NUCOMP tail's
-    rl.lehmer_euclid inside a with block (groups: one (B,) tensor a call)."""
+    """Records each lane's working groups of the NUCOMP tail's Lehmer walk
+    (cuda_group.lehmer_euclid: K7 on the card) inside a with block
+    (groups: one (B,) tensor a call). A graph replay calls no dispatcher:
+    only eager calls are counted."""
 
     def __enter__(self):
-        from cofhe_tpu_torch.ops import rl
+        from cofhe_tpu_torch.ops import cuda_group
 
-        self.rl, self.orig, self.groups = rl, rl.lehmer_euclid, []
+        self.mod, self.orig, self.groups = cuda_group, cuda_group.lehmer_euclid, []
 
         def counted(*args, **kw):
             import torch
@@ -1582,21 +1796,24 @@ class LehmerCount:
             self.groups.append(it)
             return out
 
-        rl.lehmer_euclid = counted
+        cuda_group.lehmer_euclid = counted
         return self
 
     def __exit__(self, *exc):
-        self.rl.lehmer_euclid = self.orig
+        self.mod.lehmer_euclid = self.orig
         return False
 
 
-def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128):
+def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128,
+                    groups=None):
     """Host wall time and device time of one compose2 at the decrypt
     ladder's batch (the device's busy share of a step), its span on the
     card's clock between CUDA events recorded before and after it, the
-    device time split into the seven kernels and everything else, and with
-    the NUCOMP tail the Lehmer walk's groups a lane. A graph replay is
-    profiled as it runs: copies in, one replay, clones out."""
+    device time split into the eight kernels and everything else, and with
+    the NUCOMP tail the Lehmer walk's groups a lane (a replay calls no
+    dispatcher: there `groups`, an eager call's on the same forms). A graph
+    replay is profiled as it runs: copies in, one replay, clones out.
+    Returns the groups a lane, if counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1623,18 +1840,24 @@ def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128):
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     split = dict.fromkeys(("xgcd_coeff_g", "mod_topdown", "reduce2_grouped",
                            "reduce_exact", "mag_mul", "divexact_odd", "redc_mod",
-                           "other"), 0.0)
+                           "lehmer_euclid", "other"), 0.0)
     for e in device:
-        k = next((n for n in split if n + "_kernel" in e.name), "other")
+        k = "lehmer_euclid" if any(n in e.name for n in K7_DEVICE) else next(
+            (n for n in split if n + "_kernel" in e.name), "other")
         split[k] += e.self_device_time_total / 1e3
     dev_ms = sum(split.values())
     busy = f"{dev_ms / wall_ms:.1%} of the wall time" if dev_ms else "not measured"
-    groups = (f", Lehmer groups a lane {_stats(lehmer.groups[0])}"
-              if lehmer.groups else "")
+    if lehmer.groups:
+        groups = lehmer.groups[0]
+        note = f", Lehmer groups a lane {_stats(groups)}"
+    else:
+        note = (f", Lehmer groups a lane {_stats(groups)} (the eager call's)"
+                if groups is not None and split["lehmer_euclid"] else "")
     log(f"compose2 B={B} ({label}): wall {wall_ms:.2f} ms, span on the card's clock "
         f"{span_ms:.2f} ms, device {dev_ms:.2f} ms ({busy}), {len(device)} device "
-        f"kernels and copies{groups}; device ms by kernel "
+        f"kernels and copies{note}; device ms by kernel "
         + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    return groups
 
 
 def card_line() -> str:
@@ -1700,23 +1923,26 @@ def report_build(cgp) -> None:
 
 
 def compose2_npt() -> dict:
-    """{shape: (kernel, NPT)} of the K5m, K5d, K4 and KT calls compose2
+    """{shape: (kernel, NPT)} of the K5m, K5d, K4, KT and K7 calls compose2
     makes: K5m (La, Lb, L_out) and K5d (Lx, Ly, L_out) at ceil(L_out / 32),
-    K4 (Lx, Ld) at ceil(N / 32), N = max(Lx, steps + Ld) + 1, KT at
-    ceil(L / 32)."""
+    K4 (Lx, Ld) at ceil(N / 32), N = max(Lx, steps + Ld) + 1, KT and K7
+    (the NUCOMP tail's) at ceil(L / 32)."""
     out = {sh: ("mag_mul", -(-sh[2] // 32)) for sh in K5M_SHAPES}
     out.update({sh: ("divexact_odd", -(-sh[2] // 32)) for sh in K5D_SHAPES})
     out.update({sh: ("redc_mod", -(-(max(sh[0], K4_STEPS + sh[1]) + 1) // 32))
                 for sh in K4_SHAPES})
     out[(KT_L,)] = ("reduce_exact", -(-KT_L // 32))
+    # K7's two kernels at the NUCOMP tail's width L
+    out[("NUCOMP walk", KT_L)] = ("lehmer_euclid_walk", -(-KT_L // 32))
+    out[("NUCOMP finish", KT_L)] = ("lehmer_euclid_finish", -(-KT_L // 32))
     return out
 
 
 def kernel_instance(mangled: str):
-    """(kernel, template arguments) of a K5m, K5d, K4 or KT instance's
+    """(kernel, template arguments) of a K5m, K5d, K4, KT or K7 instance's
     mangled name, else None."""
-    m = re.search(r"(mag_mul|divexact_odd|redc_mod|reduce_exact)_kernelI((?:Li\d+E)+)E",
-                  mangled)
+    m = re.search(r"(mag_mul|divexact_odd|redc_mod|reduce_exact|lehmer_euclid_walk|"
+                  r"lehmer_euclid_finish)_kernelI((?:Li\d+E)+)E", mangled)
     if not m:
         return None
     return m.group(1), tuple(int(v) for v in re.findall(r"Li(\d+)E", m.group(2)))
@@ -1724,7 +1950,7 @@ def kernel_instance(mangled: str):
 
 def ptxas_instances(text: str) -> dict:
     """{(kernel, template arguments): {regs, stack, stores, loads}} of K5m's,
-    K5d's, K4's and KT's instances in nvcc's -Xptxas=-v report."""
+    K5d's, K4's, KT's and K7's instances in nvcc's -Xptxas=-v report."""
     out, cur = {}, None
     for ln in text.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties for )(\S+?)'?$",
@@ -1835,6 +2061,9 @@ def main() -> int:
     kt = {B: check_kt(torch, cgp, cg, gmp, hsm, port, rng, B)
           for B in (KERNEL_B, RAGGED_B, SMALL_B)}
     limb_k = check_limb_kernels(torch, cgp, lb, rng)
+    ncg = f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True)
+    k7 = {B: check_k7(torch, cgp, ncg, lb, gmp, hsm, bform_from_forms, rng, B)
+          for B in (KERNEL_B, RAGGED_B, SMALL_B)}
     log(f"kernel checks: {time.perf_counter() - t:.1f} s")
 
     from cofhe_tpu_torch.ops import graphs
@@ -1869,9 +2098,14 @@ def main() -> int:
     by_path["mesh"] = run_mesh(torch, cgp, port, main_path, ops)
     log(f"mesh phase: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    by_path["legacy"], legacy_by_key, legacy_rec = run_legacy(torch, cgp, port,
-                                                              main_path, rng)
+    by_path["legacy"], legacy_by_key, legacy_rec, ncg = run_legacy(torch, cgp, port,
+                                                                   main_path, rng)
     log(f"legacy phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    reset_counts(cgp)
+    _, nucomp_rec = compare_nucomp(torch, cgp, port, main_path, ncg, rng)
+    nucomp_by_key = dict(cgp.LAUNCHES_BY_KEY)
+    log(f"NUCOMP against default phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     table = []
@@ -1879,10 +2113,14 @@ def main() -> int:
         for key in sorted(rec.ops, key=lambda k: (k[3], k[0], k[1])):
             table.append(table_row(torch, cgp, f2m, cg, lb, key, rec.ops[key],
                                    main_by_key.get(key, 0)))
-        # the legacy path's shapes that the main path has not (K3, KT at Ln)
+        # the legacy path's shapes that the main path has not (K3, KT at Ln;
+        # K7), and K7 at the NUCOMP comparison's batches
         for key in sorted(k for k in legacy_rec.ops if k not in rec.ops):
             table.append(table_row(torch, cgp, f2m, cg, lb, key, legacy_rec.ops[key],
                                    legacy_by_key[key]))
+        for key in sorted(k for k in nucomp_rec.ops if k not in legacy_rec.ops):
+            table.append(table_row(torch, cgp, f2m, cg, lb, key, nucomp_rec.ops[key],
+                                   nucomp_by_key.get(key, 0)))
     log(f"kernel table: {time.perf_counter() - t:.1f} s, {len(table)} rows")
     for want in TABLE_B:
         if not any(r["name"].endswith(f"@B={want}") for r in table):
@@ -1910,7 +2148,9 @@ def main() -> int:
            "mag_mul": ("cofhe_tpu_torch/csrc/mag_mul.cu", "cofhe_tpu/ops/limb.py:352"),
            "divexact_odd": ("cofhe_tpu_torch/csrc/divexact_odd.cu",
                             "cofhe_tpu/ops/limb.py:566"),
-           "redc_mod": ("cofhe_tpu_torch/csrc/redc_mod.cu", "cofhe_tpu/ops/rl.py:486")}
+           "redc_mod": ("cofhe_tpu_torch/csrc/redc_mod.cu", "cofhe_tpu/ops/rl.py:486"),
+           "lehmer_euclid": ("cofhe_tpu_torch/csrc/lehmer_euclid.cu",
+                             "cofhe_tpu/ops/rl.py:347")}
     kernels = [
         entry("xgcd_coeff_g", *src["xgcd_coeff_g"], k1[(88, False, KERNEL_B)]),
         entry("mod_topdown", *src["mod_topdown"], k2[KERNEL_B]),
@@ -1922,6 +2162,8 @@ def main() -> int:
         entry("divexact_odd", *src["divexact_odd"],
               limb_k["divexact_odd"][((144, 72, 144), KERNEL_B)]),
         entry("redc_mod", *src["redc_mod"], limb_k["redc_mod"][((72, 72), KERNEL_B)]),
+        # the walk operands of 16384 compose2 pairs (the NUCOMP tail's)
+        entry("lehmer_euclid", *src["lehmer_euclid"], k7[KERNEL_B]),
     ]
     for r in table:
         base_name = r["name"].split("[")[0].split("@")[0]

@@ -299,6 +299,164 @@ __device__ __forceinline__ void value_est(const int (&x)[NPT], int lane,
   mant = s;
 }
 
+// ---- ordered estimates and the JAX digit (K7)
+
+// floor(a / b) for b != 0 (torch's floor division; C's `/` truncates).
+__device__ __forceinline__ int floordiv(int a, int b) {
+  const int q = a / b;
+  return (q * b != a && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+// rl.log2f_i: the f32 exponent of |v|, -200 for 0.
+__device__ __forceinline__ int log2f_i(float v) {
+  return v == 0.0f ? -200 : ((__float_as_int(fabsf(v)) >> 23) - 127);
+}
+
+// rl.digit_est(mx, tx, mm, tm, D, exp_clamp=D + 2) with no jmax, the JAX
+// package's digit: q ~= qd * 2^(16 j), |qd| < 2^D, for positive mm.
+__device__ __forceinline__ void digit_est_jax(float mx, int tx, float mm,
+                                              int tm, int D, int& qd,
+                                              int& j) {
+  const float ratio = mx / fmaxf(mm, 1e-30f);
+  const int ebits = 16 * (tx - tm);
+  const int qbits = ebits + log2f_i(ratio) + 1;
+  j = max(floordiv(qbits - D + 15, 16), 0);
+  const int e = min(max(ebits - 16 * j, -126), D + 2);
+  const float lim = (float)((1 << D) - 1);
+  qd = (int)fminf(fmaxf(rintf(ratio * pow2f(e)), -lim), lim);
+}
+
+// XLA-CPU's order for a row of 19-32 terms (rl._XLA_PLANS): lane k of V
+// sums t[off + k] over the offsets in order, the lanes are halved down to
+// one, then the tail from START is added one term at a time, or (PAIRED)
+// the even term of each pair into the sum and the odd one into a second
+// sum that joins before an unpaired last term.
+template <int V, int NOFF>
+__device__ __forceinline__ float xla_lanes(const float (&t)[32],
+                                           const int (&off)[NOFF]) {
+  float l[V];
+#pragma unroll
+  for (int k = 0; k < V; k++) {
+    l[k] = t[off[0] + k];
+#pragma unroll
+    for (int o = 1; o < NOFF; o++) l[k] = l[k] + t[off[o] + k];
+  }
+#pragma unroll
+  for (int h = V / 2; h >= 1; h >>= 1) {
+#pragma unroll
+    for (int k = 0; k < h; k++) l[k] = l[k] + l[k + h];
+  }
+  return l[0];
+}
+
+template <int START, bool PAIRED>
+__device__ __forceinline__ float xla_tail(float acc, const float (&t)[32],
+                                          int n) {
+  int q0 = START;
+  if (PAIRED) {
+    float odd = 0.0f;
+#pragma unroll
+    for (int q = START; q + 1 < 32; q += 2) {
+      if (q + 1 < n) {
+        acc = acc + t[q];
+        odd = odd + t[q + 1];
+      }
+    }
+    acc = acc + odd;
+    q0 = START + 2 * ((n - START) / 2);
+  }
+#pragma unroll
+  for (int q = START; q < 32; q++)
+    if (q >= q0 && q < n) acc = acc + t[q];
+  return acc;
+}
+
+// rl._sum_xla_row of n <= 32 terms (t[i] = 0 for i >= n).
+__device__ __forceinline__ float sum_xla_row(const float (&t)[32], int n) {
+  if (n <= 18) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 32; i++)
+      if (i < n) acc = acc + t[i];
+    return acc;
+  }
+  if (n == 19) {
+    constexpr int off[] = {0, 8};
+    return xla_tail<16, true>(xla_lanes<8, 2>(t, off), t, n);
+  }
+  if (n <= 23) {
+    constexpr int off[] = {0, 4, 8, 12};
+    return xla_tail<16, true>(xla_lanes<4, 4>(t, off), t, n);
+  }
+  if (n <= 27) {
+    constexpr int off[] = {0, 8, 16};
+    return xla_tail<24, true>(xla_lanes<8, 3>(t, off), t, n);
+  }
+  if (n <= 31) {
+    constexpr int off[] = {0, 8, 16, 12, 4, 20};
+    return xla_tail<24, false>(xla_lanes<4, 6>(t, off), t, n);
+  }
+  constexpr int off[] = {0, 8, 16, 24};
+  return xla_lanes<8, 4>(t, off);
+}
+
+// rl.value_est_ordered: value_est with the mantissa rounded step by step
+// in the order XLA's CPU backend sums the JAX package's value_est
+// (rl._sum_ordered), so that every decision taken on it is the plain
+// version's. A term is limb i times 2^(16 (i - top)), exact in f32; only
+// limbs top - 7 .. top give nonzero terms (pow2f is 0 below 2^-126), and
+// adding a zero is exact, so the sum runs over those eight, gathered to
+// every thread by eight shuffles, in the order the whole row's sum meets
+// them: left to right for rows of at most 18 limbs; for rows past 32,
+// whose windows of 32 limbs (after (32 - W % 32) % 32 / 2 zeros in front)
+// are summed left to right and then added left to right, the eight split
+// at the window cut into two left-to-right sums that are then added. A row
+// of 19-32 limbs (one limb a thread) takes all its terms by 32 shuffles
+// and sum_xla_row.
+template <int NPT>
+__device__ __forceinline__ void value_est_ordered(const int (&x)[NPT],
+                                                  int lane, int W,
+                                                  float& mant, int& top) {
+  int tl = 0;
+#pragma unroll
+  for (int j = 0; j < NPT; j++)
+    if (x[j] != 0) tl = lane * NPT + j;
+  top = __reduce_max_sync(WL_FULL, tl);
+  if (NPT == 1 && W > 18) {
+    const float mine = (float)x[0] * pow2f(16 * (lane - top));
+    float t[32];
+#pragma unroll
+    for (int i = 0; i < 32; i++) t[i] = __shfl_sync(WL_FULL, mine, i);
+    mant = sum_xla_row(t, W);
+    return;
+  }
+  float term[8];
+#pragma unroll
+  for (int k = 0; k < 8; k++) {  // limb top - 7 + k, from the thread owning it
+    const int i = top - 7 + k;
+    const int owner = i < 0 ? 0 : i / NPT;
+    const int slot = i - owner * NPT;
+    int v = 0;
+#pragma unroll
+    for (int j = 0; j < NPT; j++)
+      if (j == slot) v = x[j];
+    v = __shfl_sync(WL_FULL, v, owner);
+    term[k] = i < 0 ? 0.0f : (float)v * pow2f(16 * (k - 7));
+  }
+  float acc = 0.0f, win = 0.0f;
+  const int front = ((32 - W % 32) % 32) / 2;
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    const int i = top - 7 + k;
+    if (W > 32 && k > 0 && i > 0 && ((i + front) & 31) == 0) {
+      acc = acc + win;
+      win = 0.0f;
+    }
+    win = win + term[k];
+  }
+  mant = acc + win;
+}
+
 // ---- 64-bit steering (K3) and int64 limb sums (K2, K3)
 
 // 2^e as f64 from its exponent bits; 0 below -1022, clamped at 1023

@@ -1,7 +1,7 @@
 """Hopper kernels for the class-group hot loops (counterpart of
 cofhe_tpu/ops/pallas_group.py).
 
-Seven kernels, CUDA C++ for sm_90a under cofhe_tpu_torch/csrc/, built with
+Eight kernels, CUDA C++ for sm_90a under cofhe_tpu_torch/csrc/, built with
 nvcc into plain-C shared libraries at first use and bound with ctypes. Each
 gives one warp to one batch row (K5m up to four at small batches); the
 source notes say more.
@@ -48,21 +48,30 @@ source notes say more.
   _redc_mod): x * 2^(-16 steps) mod d in [0, d) for odd d, limb by limb
   from its own 16-bit inverse; its plain version is rl.redc_mod.
 
+* K7 `lehmer_euclid` (csrc/lehmer_euclid.cu) replaces the XLA while loop
+  of rl.py::lehmer_euclid, the opt-in NUCOMP tail's Lehmer walk: grouped
+  continued-fraction steps on f32 top-word estimates summed in XLA-CPU's
+  order, a 2^13 matrix applied to six redundant rows, each lane leaving on
+  its own and a second pass giving the stopped lanes the batch loop's
+  carry passes; its plain version is rl.lehmer_euclid, whose limbs, `par`
+  and working groups it matches.
+
 The main path runs 97% of K2's and K3's launches at 128-256 lanes, where a
 kernel's time is the latency of one warp's loop rather than the card's
 rate; every kernel runs four warps a block. The earlier plain versions,
 rl.mod_topdown and forms2.grouped_rho_loop, stay as references.
 
 The dispatchers `xgcd_coeff_g`, `mod_topdown`, `reduce2_grouped_loop`,
-`reduce_exact`, `mag_mul`, `mag_divexact_odd` and `redc_mod` are what
-ops/forms2.py (and limb.mag_mul / mag_divexact_odd) call: a CPU tensor
-goes to the plain version (`plain_route`), a CUDA tensor to the kernel, and
-anything else raises; there is no fallback from the kernel to the plain
-version. Each `*_cuda` wrapper adds one to `LAUNCHES[name]` and to
-`LAUNCHES_BY_KEY[(name, width, extra, batch)]` (extra: nbits or Lm, the
-operand widths "LaxLb" of a product or "LxxLy" of a quotient, d's width
-for a REDC, else 0) where it launches its kernel and nowhere else. While a
-thread captures a CUDA graph (`capturing_launches`, ops/graphs.py) its
+`reduce_exact`, `mag_mul`, `mag_divexact_odd`, `redc_mod` and
+`lehmer_euclid` are what ops/forms2.py (and limb.mag_mul /
+mag_divexact_odd) call: a CPU tensor goes to the plain version
+(`plain_route`), a CUDA tensor to the kernel, and anything else raises;
+there is no fallback from the kernel to the plain version. Each `*_cuda`
+wrapper adds one to `LAUNCHES[name]` and to `LAUNCHES_BY_KEY[(name,
+width, extra, batch)]` (extra: nbits or Lm, the operand widths "LaxLb" of
+a product or "LxxLy" of a quotient, d's width for a REDC, the group cap
+of a Lehmer walk, else 0) where it launches its kernel and nowhere else.
+While a thread captures a CUDA graph (`capturing_launches`, ops/graphs.py) its
 launches are recorded into the graph's key list instead, and each replay
 of the graph counts them (`count_launches`): the kernels run once a replay.
 """
@@ -101,6 +110,7 @@ _ARGTYPES = {
     "mag_mul": [_P] * 3 + [_I] * 6 + [_P],
     "divexact_odd": [_P] * 3 + [_I] * 6 + [_P],
     "redc_mod": [_P] * 4 + [_I] * 6 + [_P],
+    "lehmer_euclid": [_P] * 13 + [_I] * 4 + [_P],
 }
 KERNELS = tuple(_ARGTYPES)
 
@@ -526,3 +536,56 @@ def redc_mod(x, d_mag, steps: int, active=None, inv=None):
     if plain_route(x):
         return redc_mod_plain(x, d_mag, steps, active=active, inv=inv)
     return redc_mod_cuda(x, d_mag, steps, active=active)
+
+
+# ------------------------------------------------------- K7: the Lehmer walk
+
+
+lehmer_euclid_plain = rl.lehmer_euclid
+
+
+def lehmer_euclid_cuda(r0_mag, r1_mag, bits_stop, max_groups: int,
+                       sim_steps: int = 8, active=None, iters=None):
+    """K7 on the card: rl.lehmer_euclid's (rp, rc, xp, xc, yp, yc, par) of
+    (B, L) magnitudes r0, r1, with bits_stop a (B,) f32 tensor and
+    `active` an optional (B,) bool tensor. `iters`, if given, receives
+    each lane's number of working groups."""
+    r0_mag, r1_mag = r0_mag.contiguous(), r1_mag.contiguous()
+    _check("lehmer_euclid", r0_mag, r1_mag)
+    B, L = r0_mag.shape
+    dev = r0_mag.device
+    if r1_mag.shape != (B, L):
+        raise ValueError("lehmer_euclid: r0 and r1 must share one (B, L) shape")
+    if not 1 <= L <= MAX_LIMBS:
+        raise ValueError(f"lehmer_euclid: width {L} outside [1, {MAX_LIMBS}]")
+    if bits_stop.shape != (B,) or bits_stop.dtype != torch.float32 \
+            or bits_stop.device != dev:
+        raise ValueError("lehmer_euclid: bits_stop must be a (B,) float32 "
+                         "tensor on the inputs' device")
+    bits_stop = bits_stop.contiguous()
+    act = None
+    if active is not None:
+        if active.shape != (B,) or active.dtype != torch.bool or active.device != dev:
+            raise ValueError("lehmer_euclid: active must be a (B,) bool tensor "
+                             "on the inputs' device")
+        act = active.contiguous()
+    rows = [torch.empty_like(r0_mag) for _ in range(6)]
+    par = torch.empty(B, dtype=torch.int32, device=dev)
+    work = torch.empty(B + 1, dtype=torch.int32, device=dev)
+    _launch(("lehmer_euclid", L, int(max_groups), B), r0_mag, r0_mag.data_ptr(),
+            r1_mag.data_ptr(), bits_stop.data_ptr(),
+            None if act is None else act.data_ptr(),
+            *(r.data_ptr() for r in rows), par.data_ptr(),
+            _iters_ptr(iters, B, r0_mag), work.data_ptr(), B, L,
+            int(max_groups), int(sim_steps))
+    return (*rows, par)
+
+
+def lehmer_euclid(r0_mag, r1_mag, bits_stop, max_groups: int,
+                  sim_steps: int = 8, active=None, iters=None):
+    """Dispatcher: plain version for CPU tensors, K7 for CUDA tensors."""
+    if plain_route(r0_mag):
+        return lehmer_euclid_plain(r0_mag, r1_mag, bits_stop, max_groups,
+                                   sim_steps=sim_steps, active=active, iters=iters)
+    return lehmer_euclid_cuda(r0_mag, r1_mag, bits_stop, max_groups,
+                              sim_steps=sim_steps, active=active, iters=iters)

@@ -17,24 +17,26 @@ The algebra and the widths are the JAX package's:
   exact tail (`cuda_group.reduce_exact`: KT, or `forms.reduce_batch` on
   the CPU); or, opt-in as in the JAX package
   (`COFHE_NUCOMP=1` or `CG(..., use_nucomp=True)`), the NUCOMP tail: a
-  Lehmer walk down the continued fraction of mu / 2m2 (`rl.lehmer_euclid`)
-  and the nearly reduced form built from its cofactors, which the
+  Lehmer walk down the continued fraction of mu / 2m2
+  (`cuda_group.lehmer_euclid`: K7, or `rl.lehmer_euclid` on the CPU) and
+  the nearly reduced form built from its cofactors, which the
   rho-descent then finishes at width Ln.
 
 Every `xgcd_coeff_g`, `mod_topdown`, grouped-rho loop, exact tail,
-product (`lb.mag_mul`), exact quotient (`lb.mag_divexact_odd`) and REDC
-(`CG._redc_mod`) goes through the dispatchers of ops/cuda_group.py: on a
-CUDA tensor they launch the Hopper kernels (K1, K2, K3, KT, K5m, K5d, K4),
-on a CPU tensor they run the plain torch versions. On the card no 2-adic
-inverse runs inside compose2: K5d and K4 take their own 16-bit inverses.
+product (`lb.mag_mul`), exact quotient (`lb.mag_divexact_odd`), REDC
+(`CG._redc_mod`) and Lehmer walk goes through the dispatchers of
+ops/cuda_group.py: on a CUDA tensor they launch the Hopper kernels (K1,
+K2, K3, KT, K5m, K5d, K4, K7), on a CPU tensor they run the plain torch
+versions. On the card no 2-adic inverse runs inside compose2: K5d and K4
+take their own 16-bit inverses.
 Reduced forms are unique, so the outputs equal the JAX package's and the
 pure-Python oracle's bit for bit.
 
-On a CUDA device, `CG.compose2` with the grouped reduction and no NUCOMP
-replays one captured CUDA graph per batch size (ops/graphs.py), the
-counterpart of the JAX engine's jitted steps: that compose2 reads no
-value on the host, so the whole step is one device program.
-`CG(..., graphs=False)` runs it eagerly instead; NUCOMP, `grouped=False`
+On a CUDA device, `CG.compose2` with the grouped reduction, with or
+without NUCOMP, replays one captured CUDA graph per batch size
+(ops/graphs.py), the counterpart of the JAX engine's jitted steps: that
+compose2 reads no value on the host, so the whole step is one device
+program. `CG(..., graphs=False)` runs it eagerly instead; `grouped=False`
 and the v1 code stay eager.
 
 The rho loops in torch ops test their exit condition on the host every
@@ -325,8 +327,8 @@ class CG:
     constant |Delta|/4 and the two substitute forms h, h^2 of the identity
     fast path. `use_nucomp` selects the NUCOMP tail; None reads the JAX
     package's switch COFHE_NUCOMP (=1 on) at construction. `graphs`
-    (default on) lets compose2 on a CUDA device replay a captured graph a
-    batch size (ops/graphs.py); off, it runs eagerly."""
+    (default on) lets compose2 on a CUDA device, NUCOMP or not, replay a
+    captured graph a batch size (ops/graphs.py); off, it runs eagerly."""
 
     def __init__(self, disc_bits: int, delta4: torch.Tensor, h: BForm,
                  h2: BForm, use_nucomp: bool | None = None,
@@ -449,10 +451,10 @@ class CG:
 
     # ------------------------------------------------------------ compose
     def compose2(self, F1: BForm, F2: BForm, grouped: bool = True) -> BForm:
-        """F1 * F2 reduced. On a CUDA device with `graphs`, `grouped` and no
-        NUCOMP, a replay of this batch size's captured graph; otherwise
-        eager."""
-        if self.graphs and grouped and not self.use_nucomp and F1.a.is_cuda:
+        """F1 * F2 reduced. On a CUDA device with `graphs` and `grouped`, a
+        replay of this batch size's captured graph (the NUCOMP tail too);
+        otherwise eager."""
+        if self.graphs and grouped and F1.a.is_cuda:
             return self.compose_graphs.run(F1, F2)
         return self.compose2_eager(F1, F2, grouped)
 
@@ -599,11 +601,23 @@ class CG:
         c3 = lb.mag_divexact_odd(csum_sh, lb.resize(a3_odd, Lm), L)
         return a3, b3s, b3m, c3, a1g, m2x2, mu, id1, id2
 
+    def lehmer_operands(self, a1g, m2x2, mu):
+        """The NUCOMP tail's Lehmer walk operands (r0, r1, bits_stop): 2m2
+        and mu at width L, and the bits at which the walk stops."""
+        mantB, topB = rl.value_est_ordered(m2x2)
+        bitsB = rl.bits_est(mantB, topB)
+        mantA, topA = rl.value_est_ordered(a1g)
+        bitsA = rl.bits_est(mantA, topA)
+        # T^2 ~ 2B * sqrt(|D|/4) / sqrt(A*B)
+        bits_stop = 0.5 * (bitsB + 0.5 * (self.disc_bits - 2.0)
+                           - 0.5 * (bitsA + bitsB - 1.0))
+        return lb.resize(m2x2, self.L), lb.resize(mu, self.L), bits_stop
+
     def _nucomp_tail(self, a3, b3s, b3m, c3, a1g, m2x2, mu,
                      grouped: bool = True) -> BForm:
         """NUCOMP partial reduction: walk the continued fraction of
-        mu / 2m2 with rl.lehmer_euclid down to bits_stop (~ the bits of
-        (|Delta|/4)^(1/4) * sqrt(2m2 / a1g)) and build the nearly reduced
+        mu / 2m2 with the Lehmer walk (K7 on the card) down to bits_stop
+        (~ the bits of (|Delta|/4)^(1/4) * sqrt(2m2 / a1g)) and build the nearly reduced
         equivalent form from the cofactors z_i = (x_i, y_i):
 
             Q(z)  = a3 x^2 + b3 x y + c3 y^2       (the new a and c)
@@ -612,15 +626,8 @@ class CG:
         det [[xp, yp], [xc, yc]] = +-1; an improper transform conjugates the
         class, which negating b undoes. reduce2 then finishes at width Ln."""
         L, Ln = self.L, self.Ln
-        mantB, topB = rl.value_est_ordered(m2x2)
-        bitsB = rl.bits_est(mantB, topB)
-        mantA, topA = rl.value_est_ordered(a1g)
-        bitsA = rl.bits_est(mantA, topA)
-        # T^2 ~ 2B * sqrt(|D|/4) / sqrt(A*B)
-        bits_stop = 0.5 * (bitsB + 0.5 * (self.disc_bits - 2.0)
-                           - 0.5 * (bitsA + bitsB - 1.0))
-        _, _, xp, xc, yp, yc, par = rl.lehmer_euclid(
-            lb.resize(m2x2, L), lb.resize(mu, L), bits_stop, self.eu_groups)
+        _, _, xp, xc, yp, yc, par = cuda_group.lehmer_euclid(
+            *self.lehmer_operands(a1g, m2x2, mu), self.eu_groups)
         # the cofactors stay under the walk's y-cap (<= 16 Lh bits), so
         # they are cut to Lh limbs before the products
         Lxy = min(self.Lh, L)

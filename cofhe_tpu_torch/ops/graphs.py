@@ -7,11 +7,14 @@ jitted steps (cofhe_tpu/ops/engine.py `JaxEngine._jit_rows`,
 The JAX package compiles each engine step, compose2 included, into one
 device program whose loops stay on the device. The port's eager compose2
 is a sequence of small torch kernels around the Hopper kernels; with KT
-for the exact tail and REDCs that run on every lane it reads no value on
-the host, so it is one fixed sequence of kernels, which a
-`torch.cuda.CUDAGraph` captures once and replays as one launch. Every caller of `CG.compose2` / `nudupl2` (the wNAF and Yao
-ladders, the matmul's chain, ladder and finalization, add, combine, the
-sharded paths) takes the graph with no change of its own.
+for the exact tail, REDCs that run on every lane and, in the opt-in NUCOMP
+tail, K7 for the Lehmer walk, it reads no value on the host, so it is one
+fixed sequence of kernels, which a `torch.cuda.CUDAGraph` captures once
+and replays as one launch. A NUCOMP CG (`use_nucomp`) is a CG object of
+its own, with its own graphs and memory pools. Every caller of
+`CG.compose2` / `nudupl2` (the wNAF and Yao ladders, the matmul's chain,
+ladder and finalization, add, combine, the sharded paths) takes the graph
+with no change of its own.
 
 One `ComposeGraph` per (device, batch shape), held by the CG's
 `ComposeGraphs` and built at first use:

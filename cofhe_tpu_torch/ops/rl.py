@@ -7,8 +7,9 @@ tails canonicalize. `mod_topdown28` here is the plain version of the
 Hopper kernel in csrc/mod_topdown.cu (ops/cuda_group.py dispatches between
 them); `mod_topdown`, the 24-bit-digit schedule, stays as a reference.
 
-`lehmer_euclid`, the engine of the opt-in NUCOMP composition tail, runs in
-torch ops on either device.
+`lehmer_euclid`, the engine of the opt-in NUCOMP composition tail, is the
+plain version of K7 (csrc/lehmer_euclid.cu; ops/cuda_group.py dispatches):
+the CPU runs it, and chip_smoke holds K7 to it on the card.
 
 Loop conditions are host syncs in eager PyTorch. Every loop body below is a
 fixed point on finished lanes, so the port may test the condition every few
@@ -75,36 +76,78 @@ def value_est(x):
     return mant, top
 
 
+# XLA-CPU's order for a row of 19-32 terms (found by probing the JAX
+# package's jitted sums on the CPU with pairs of cancelling terms):
+# (lanes, chunk offsets, tail start, tail in two accumulators). Lane k
+# sums terms offset + k over the offsets in order, the lanes are reduced
+# by halving (lane k + lane k + lanes/2, ...), and the terms from the tail
+# start on are added one by one, or, with two accumulators, the even ones
+# of each pair into the lane sum and the odd ones into a second sum added
+# before an unpaired last term.
+_XLA_PLANS = {19: (8, (0, 8), 16, True)}
+_XLA_PLANS.update({n: (4, (0, 4, 8, 12), 16, True) for n in range(20, 24)})
+_XLA_PLANS.update({n: (8, (0, 8, 16), 24, True) for n in range(24, 28)})
+_XLA_PLANS.update({n: (4, (0, 8, 16, 12, 4, 20), 24, False) for n in range(28, 32)})
+_XLA_PLANS[32] = (8, (0, 8, 16, 24), 32, True)
+
+
+def _sum_xla_row(t):
+    """Sum of at most 32 f32 terms over the last axis in XLA-CPU's order:
+    left to right from 0.0 for at most 18 terms, _XLA_PLANS above."""
+    n = t.shape[-1]
+    if n not in _XLA_PLANS:
+        acc = torch.zeros(t.shape[:-1], dtype=t.dtype, device=t.device)
+        for k in range(n):
+            acc = acc + t[..., k]
+        return acc
+    lanes, offs, start, paired = _XLA_PLANS[n]
+    acc = t[..., offs[0]:offs[0] + lanes]
+    for o in offs[1:]:
+        acc = acc + t[..., o:o + lanes]
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = acc[..., :h] + acc[..., h:]
+    acc, q = acc[..., 0], start
+    if paired:
+        odd = torch.zeros_like(acc)
+        for q in range(start, n - 1, 2):
+            acc, odd = acc + t[..., q], odd + t[..., q + 1]
+        q = start + 2 * ((n - start) // 2)
+        acc = acc + odd
+    for k in range(q, n):
+        acc = acc + t[..., k]
+    return acc
+
+
 def _sum_ordered(t):
     """Sum of f32 terms over the last axis, rounded step by step in the
     order XLA's CPU backend gives the JAX package's value_est: a row of at
-    most 16 terms is added left to right from 0.0; a row of more than 32 is
-    padded with zeros to a multiple of 32 (the smaller half of the padding
-    in front), cut into windows of 32, each window summed left to right,
-    and the row of window sums reduced the same way. (Rows of 17-32 terms
-    XLA sums in a vectorized order this function does not reproduce; it
-    adds them left to right.)"""
-    while True:
-        n = t.shape[-1]
-        if n > 32:
-            pad = -n % 32
-            t = F.pad(t, (pad // 2, pad - pad // 2))
-            t = t.reshape(*t.shape[:-1], t.shape[-1] // 32, 32)
-        acc = torch.zeros(t.shape[:-1], dtype=t.dtype, device=t.device)
-        for k in range(t.shape[-1]):
-            acc = acc + t[..., k]
-        if n <= 32:
-            return acc
-        t = acc
+    most 32 terms as `_sum_xla_row`; a row of more than 32 is padded with
+    zeros to a multiple of 32 (the smaller half of the padding in front),
+    cut into windows of 32, each window summed left to right, and the row
+    of window sums reduced the same way."""
+    n = t.shape[-1]
+    if n <= 32:
+        return _sum_xla_row(t)
+    pad = -n % 32
+    t = F.pad(t, (pad // 2, pad - pad // 2))
+    t = t.reshape(*t.shape[:-1], t.shape[-1] // 32, 32)
+    win = torch.zeros(t.shape[:-1], dtype=t.dtype, device=t.device)
+    for i in range(32):
+        win = win + t[..., i]
+    acc = torch.zeros(t.shape[:-2], dtype=t.dtype, device=t.device)
+    for k in range(win.shape[-1]):
+        acc = acc + win[..., k]
+    return acc
 
 
 def value_est_ordered(x):
     """value_est with its mantissa summed as the JAX function sums it on
     the CPU (`_sum_ordered`), so that decisions taken on it are the JAX
-    package's, bit for bit, at widths of at most 16 or more than 32 limbs
-    (the main path's 72 and 144 among them). Costs ~40 torch ops more than
-    value_est; only the NUCOMP tail, whose cofactors depend on every
-    rounding of its steering, takes it."""
+    package's, bit for bit, at every width up to 288 limbs. Costs ~40
+    torch ops more than value_est; only the NUCOMP tail, whose cofactors
+    depend on every rounding of its steering, takes it (and K7,
+    csrc/lehmer_euclid.cu, sums the same terms in the same order)."""
     L = x.shape[-1]
     idx = lb._arange(L, x.device)
     top = torch.where(x != 0, idx, 0).amax(-1)
@@ -280,14 +323,14 @@ def lehmer_euclid(r0_mag, r1_mag, bits_stop, max_groups: int,
     (rp, rc, xp, xc, yp, yc) and parity (row swaps mod 2, the sign of
     det [[xp, yp], [xc, yc]]).
 
-    The port gives the JAX function's seven outputs on every lane, limb for
-    limb, at the widths where `value_est_ordered` sums as XLA does (at most
-    16 or more than 32 limbs; elsewhere a last-bit difference of an
-    estimate may pick other, equally valid cofactors): its estimates are
-    `value_est_ordered`; the digit of a big lane is
-    `digit_est` with the JAX exponent clamp (max_digit_bits + 2 = 26, not
-    this module's 60); the digit step is computed on every lane with no
-    condition and kept only where a lane is big (the JAX `lax.cond` on
+    The plain version of K7 (csrc/lehmer_euclid.cu, which the card runs
+    through cuda_group.lehmer_euclid). It gives the JAX function's seven
+    outputs on every lane, limb for limb, at every width up to 288 limbs:
+    its estimates are `value_est_ordered`, summed in XLA-CPU's order; the
+    digit of a big lane is `digit_est` with the JAX exponent clamp
+    (max_digit_bits + 2 = 26, not this module's 60); the digit step is
+    computed on every lane with no condition and kept only where a lane is
+    big (the JAX `lax.cond` on
     any(big) selects the same); and a group that runs after the JAX loop
     would have left (the host tests its condition every SYNC_EVERY groups)
     is masked to the identity on the device. `iters`, if given, is a (B,)

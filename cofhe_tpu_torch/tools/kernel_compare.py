@@ -1,5 +1,6 @@
 """The kernels of this checkout against those built from an earlier csrc/
-directory, on the operands the main path really passes, on one CUDA card.
+directory, on the operands the main path (and the NUCOMP tail) really
+passes, on one CUDA card.
 
     python3 -m cofhe_tpu_torch.tools.kernel_compare --baseline-csrc DIR
 
@@ -7,7 +8,8 @@ DIR holds the earlier sources of the kernels (and warp_limbs.cuh) with
 this checkout's C entry points (cuda_group._ARGTYPES); for example an
 unpacked `git archive <commit> cofhe_tpu_torch/csrc`. A kernel whose
 source DIR lacks (KT, K5m, K5d or K4 before they existed) is compared
-with nothing. The earlier K1 is
+with nothing; K7, the NUCOMP tail's Lehmer walk, is then held to its plain
+version and timed beside it. The earlier K1 is
 the 13-divstep kernel: it gets its loop cap in 13-step groups (a cap that
 also covers any kernel of longer groups, whose loop ends once g is zero),
 and its trips count 13 divsteps a group. Where an earlier kernel is the
@@ -20,7 +22,8 @@ measurement. From the root of a checkout, the script:
    instance of both (cuobjdump -sass);
 2. drives chip_smoke's main path once (its checks included) and its graph
    against eager decrypt, recording the operands of one decrypt, chain
-   and ladder compose2;
+   and ladder compose2, and of one eager NUCOMP compose2 on 128 of the
+   main path's ciphertexts (K7's);
 3. runs the main path's matmul twice more in the same process on the same
    inputs and Enc(0), eagerly (a captured graph would keep this
    checkout's kernels), with this checkout's kernels and with the earlier
@@ -162,13 +165,25 @@ class Baseline:
                    out.data_ptr(), xr.shape[0], xr.shape[1], dr.shape[1], sx, sd, int(steps))
         return out
 
+    def lehmer_euclid(self, torch, r0, r1, stop, max_groups, sim_steps=8,
+                      active=None, iters=None):
+        B, L = r0.shape
+        rows = [torch.empty_like(r0) for _ in range(6)]
+        par = torch.empty(B, dtype=torch.int32, device=r0.device)
+        work = torch.empty(B + 1, dtype=torch.int32, device=r0.device)
+        self._call(torch, "lehmer_euclid", r0.data_ptr(), r1.data_ptr(), stop.data_ptr(),
+                   self._ptr(active), *(r.data_ptr() for r in rows), par.data_ptr(),
+                   self._ptr(iters), work.data_ptr(), B, L, int(max_groups),
+                   int(sim_steps))
+        return (*rows, par)
+
 
 # cuda_group's wrapper for each kernel
 WRAPPER = {"xgcd_coeff_g": "xgcd_coeff_g_cuda", "mod_topdown": "mod_topdown_cuda",
            "reduce2_grouped": "reduce2_grouped_loop_cuda",
            "reduce_exact": "reduce_exact_cuda", "mag_mul": "mag_mul_cuda",
            "divexact_odd": "mag_divexact_odd_cuda",
-           "redc_mod": "redc_mod_cuda"}
+           "redc_mod": "redc_mod_cuda", "lehmer_euclid": "lehmer_euclid_cuda"}
 
 
 @contextlib.contextmanager
@@ -286,11 +301,62 @@ def compare_synthetic(torch, smoke, cgp, port, base, cg, gmp, hsm, rng) -> None:
                  f"bound {bnd:.5f} ms, {bnd / ms:.1%} / {bnd / old_ms:.1%} of it")
 
 
+def nucomp_operands(torch, smoke, cgp, port, main) -> dict:
+    """K7's operands of one eager NUCOMP compose2 on the c1 and c2 forms of
+    128 of the main path's ciphertexts (chip_smoke's legacy path)."""
+    cg = main["cs"]._engine.cg
+    ncg = port.f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True,
+                      graphs=False)
+    cts = main["ct"].data[:smoke.LEGACY_B]
+    b1 = port.bform_from_forms([c.c1 for c in cts], cg.L, "cuda")
+    b2 = port.bform_from_forms([c.c2 for c in cts], cg.L, "cuda")
+    rec = smoke.Recorder(torch, cgp, want={("nucomp", smoke.LEGACY_B)},
+                         wrappers=("lehmer_euclid_cuda",))
+    rec.phase = "nucomp"
+    with rec, torch.inference_mode():
+        ncg.compose2(b1, b2)
+    return rec.ops
+
+
+def compare_k7(torch, smoke, cgp, base, key, args) -> None:
+    """K7 on its recorded operands: against its plain version, and against
+    the baseline's K7 in turns where the baseline has one, else timed
+    beside the plain version."""
+    name, W, _, B = key
+    r0, r1, stop, mg, active = args
+    it_new = smoke.k7_compare(torch, cgp, smoke.row_name(key), r0, r1, stop, mg, active)
+    bms = smoke.k7_bound(it_new, B, W)[0]
+    new_fn = lambda: cgp.lehmer_euclid_cuda(r0, r1, stop, mg, active=active)  # noqa: E731
+    if name not in base.kernels:
+        ms = smoke.timed(torch, new_fn, smoke.TIMING_REPS)
+        plain_ms = smoke.timed(torch, lambda: cgp.lehmer_euclid_plain(
+            r0, r1, stop, mg, active=active), 1, warm=False)
+        smoke.log(f"compare {smoke.row_name(key)}: the baseline has no K7; bit-exact vs "
+                  f"the plain version, groups {smoke._stats(it_new)}; kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.1f} ms, bound {bms:.5f} ms ({bms / ms:.1%} of it)")
+        return
+    it_old = torch.zeros_like(it_new)
+    old = base.lehmer_euclid(torch, r0, r1, stop, mg, active=active, iters=it_old)
+    if smoke.max_abs_diff(torch, old, cgp.lehmer_euclid_cuda(r0, r1, stop, mg,
+                                                             active=active)) \
+            or not torch.equal(it_new, it_old):
+        smoke.fail(f"{smoke.row_name(key)}: the baseline kernel disagrees")
+    ms, old_ms, t, reps = in_turns(torch, smoke, new_fn, lambda: base.lehmer_euclid(
+        torch, r0, r1, stop, mg, active=active))
+    smoke.log(f"compare {smoke.row_name(key)}: this kernel {ms:.4f} ms, baseline "
+              f"{old_ms:.4f} ms, {old_ms / ms:.2f}x (groups {smoke._stats(it_new)}, "
+              f"bound {bms:.5f} ms); turns {t['old'][0]:.4f} {t['new'][0]:.4f} "
+              f"{t['new'][1]:.4f} {t['old'][1]:.4f} ms, {reps} calls each")
+
+
 def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
     """This checkout's kernel and the baseline one on one recorded operand:
     agreement, trips, times in turns and bounds (each over its own trips
     and limbs)."""
     name, W, _, B = key
+    if name == "lehmer_euclid":
+        compare_k7(torch, smoke, cgp, base, key, args)
+        return
     if name not in base.kernels:
         smoke.log(f"compare {name}[W={W}]@B={B}: the baseline has no such kernel")
         return
@@ -458,9 +524,11 @@ def main() -> int:
                                       port.hostgmp.GmpEngine, rng)
     smoke.compare_decrypt(torch, cgp, port, rec, main_path)
     matmul_again(torch, smoke, cgp, base, main_path)
+    ops = dict(rec.ops)
+    ops.update(nucomp_operands(torch, smoke, cgp, port, main_path))
     with torch.inference_mode():
-        for key in sorted(rec.ops, key=lambda k: (k[3], k[0], k[1])):
-            compare_row(torch, smoke, cgp, cg, base, key, rec.ops[key])
+        for key in sorted(ops, key=lambda k: (k[3], k[0], k[1])):
+            compare_row(torch, smoke, cgp, cg, base, key, ops[key])
         compare_synthetic(torch, smoke, cgp, port, base, cg, gmp, hsm, rng)
     ecg = port.TorchEngine(hsm, "cuda", graphs=False).cg
     smoke.profile_compose(torch, ecg, gmp, hsm, port.bform_from_forms, rng,

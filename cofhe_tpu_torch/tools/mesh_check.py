@@ -52,7 +52,8 @@ OPS = ("add", "matmul", "combine")
 DISPATCHERS = {"xgcd_coeff_g": "xgcd_coeff_g", "mod_topdown": "mod_topdown",
                "reduce2_grouped": "reduce2_grouped_loop",
                "reduce_exact": "reduce_exact", "mag_mul": "mag_mul",
-               "divexact_odd": "mag_divexact_odd", "redc_mod": "redc_mod"}
+               "divexact_odd": "mag_divexact_odd", "redc_mod": "redc_mod",
+               "lehmer_euclid": "lehmer_euclid"}
 
 
 class MeshCheckError(RuntimeError):

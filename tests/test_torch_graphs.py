@@ -144,12 +144,13 @@ def _guarded(x):
 
 
 KERNEL_DISPATCHERS = ("xgcd_coeff_g", "mod_topdown", "reduce2_grouped_loop",
-                      "reduce_exact", "mag_mul", "mag_divexact_odd", "redc_mod")
+                      "reduce_exact", "mag_mul", "mag_divexact_odd", "redc_mod",
+                      "lehmer_euclid")
 
 
 @contextlib.contextmanager
 def _opaque_kernels(monkeypatch, calls=None):
-    """The seven kernel dispatchers run their plain versions on plain
+    """The eight kernel dispatchers run their plain versions on plain
     tensors (on the card they are single launches); `calls` counts the
     dispatcher calls made outside another one (`calls["inside"]` > 0
     while one runs)."""

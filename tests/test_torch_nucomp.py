@@ -4,8 +4,9 @@ built under COFHE_NUCOMP=1), the pure-Python oracle and the port's default
 compose2.
 
 lehmer_euclid's redundant outputs are compared by value, and also limb by
-limb, and `par` exactly, at 16 and 40 limbs (where the port's estimates sum
-in XLA's CPU order), on lanes that include quotient gaps past 20 bits
+limb, and `par` exactly, at 16, 24 (the toy fixture's width), 32 and 40
+limbs (the port's estimates sum in XLA's CPU order, which differs below,
+inside and above 17-32 terms), on lanes that include quotient gaps past 20 bits
 (r1 far below r0, and r0 = q*r1 + small with q > 2^13) so that the
 shifted-digit step runs; the invariants r = x*r0 + y*r1 and
 det [[xp, yp], [xc, yc]] = (-1)^par hold on every lane. compose2 and
@@ -42,7 +43,7 @@ def _value(x):
     return lb.limbs_to_ints(m, s)
 
 
-@pytest.mark.parametrize("L,bits", [(16, 220), (40, 600)])
+@pytest.mark.parametrize("L,bits", [(16, 220), (24, 330), (32, 440), (40, 600)])
 def test_lehmer_euclid_matches_jax(L, bits):
     rng = random.Random(L)
     B = 48
