@@ -35,7 +35,11 @@
    and 16384 lanes, and at 128 lanes on edge lanes at widths 16, 24, 32,
    40 and 144 (quotient gaps past 2^13, inactive lanes, lanes finished at
    entry, stopped by the y cap, cut at the group cap): its seven outputs
-   and its groups a lane must equal its plain version's bit for bit.
+   and its groups a lane must equal its plain version's bit for bit. No
+   K7 instance may spill (ptxas), and a build of K7 with -DK7_PHASES
+   (tools/kernel_compare.PhaseLib, equal to K7 on the same operands)
+   prints the split of a group's cycles by phase (estimates, simulation,
+   digit step, apply, idle carry passes) at 128 and 16384 lanes.
 2. Drives the main path once at sec=128, k=128 through the facade:
    keygen, encrypt_tensor ct(2x64), scal_ciphertext_tensors with pt(64x64)
    (16384 ladder lanes), decrypt_tensor; every plaintext must equal the
@@ -608,11 +612,10 @@ def k7_compare(torch, cgp, label, r0, r1, stop, max_groups, active=None):
     return it_k
 
 
-def check_k7(torch, cgp, ncg, lb, gmp, hsm, bform_from_forms, rng, B):
-    """K7 on the Lehmer walk operands of B compose2 pairs of a NUCOMP CG
-    (compose2_unreduced, then lehmer_operands: what its tail passes) and,
-    at 128 lanes, on K7_EDGE's edge lanes: bit-exact against its plain
-    version, with its time and bound."""
+def k7_walk_operands(torch, ncg, gmp, hsm, bform_from_forms, rng, B):
+    """(r0, r1, bits_stop) of the Lehmer walk of B compose2 pairs of powers
+    of h under a NUCOMP CG (compose2_unreduced, then lehmer_operands: what
+    its tail passes to K7)."""
     base = gmp.nupow_batch([hsm.h] * 64, [rng.getrandbits(1100) for _ in range(64)])
     f1 = [base[rng.randrange(64)] for _ in range(B)]
     f2 = [base[rng.randrange(64)] for _ in range(B)]
@@ -621,9 +624,22 @@ def check_k7(torch, cgp, ncg, lb, gmp, hsm, bform_from_forms, rng, B):
     with torch.inference_mode():
         _, _, _, _, a1g, m2x2, mu, _, _ = ncg.compose2_unreduced(b1, b2)
         r0, r1, stop = ncg.lehmer_operands(a1g, m2x2, mu)
-        r0, r1 = r0.contiguous(), r1.contiguous()
-        mg = ncg.eu_groups
+    return r0.contiguous(), r1.contiguous(), stop
+
+
+def check_k7(torch, cgp, ncg, lb, gmp, hsm, bform_from_forms, rng, B, clock=None):
+    """K7 on the Lehmer walk operands of B compose2 pairs of a NUCOMP CG
+    (k7_walk_operands) and, at 128 lanes, on K7_EDGE's edge lanes:
+    bit-exact against its plain version, with its time and bound; with
+    `clock` (kernel_compare.PhaseLib, K7 built with -DK7_PHASES) also the
+    split of a group's cycles by phase, at 128 and 16384 lanes."""
+    r0, r1, stop = k7_walk_operands(torch, ncg, gmp, hsm, bform_from_forms, rng, B)
+    mg = ncg.eu_groups
+    with torch.inference_mode():
         iters = k7_compare(torch, cgp, f"B={B}", r0, r1, stop, mg)
+        if clock is not None and B != RAGGED_B:
+            clock.split(torch, sys.modules[__name__], f"lehmer_euclid[W={ncg.L},"
+                        f"compose2 walk]@B={B}", r0, r1, stop, mg)
         if B == SMALL_B:
             for L, bits, cap in K7_EDGE:
                 e0, e1, e_stop, e_act = k7_edge_operands(torch, lb, rng, B, L, bits)
@@ -1990,6 +2006,20 @@ def sass_counts(body: str) -> dict:
     return {op: len(re.findall(rf"\b{op}U?\.", body)) for op in SASS_OPS}
 
 
+def check_k7_spills(cgp) -> None:
+    """Every K7 instance in the build's ptxas report must spill nothing."""
+    k7 = {k: p for k, p in ptxas_instances(cgp.BUILD_INFO["log"]).items()
+          if k[0].startswith("lehmer_euclid")}
+    if not k7:
+        log("ptxas: no K7 instance in the report (libraries already built)")
+        return
+    bad = [f"{k[0]}<{k[1][0]}>" for k, p in sorted(k7.items())
+           if p.get("stores") or p.get("loads")]
+    if bad:
+        fail(f"K7 instances spill: {bad}")
+    log(f"ptxas: none of the {len(k7)} K7 instances spills")
+
+
 def check_sass(cgp) -> None:
     """Reads the SASS of the built K5m and KT libraries: every K5m instance
     must run its products as IMMA (the tensor cores); prints each
@@ -2036,8 +2066,14 @@ def main() -> int:
     if hostgmp.get_lib() is None:
         fail("the GMP host backend (g++ + libgmp) did not build")
     log("host backend: GMP (csrc/classgroup.cpp)")
+    from cofhe_tpu_torch.tools.kernel_compare import PhaseLib
+
+    k7_clock = PhaseLib(cgp, cgp.CSRC_DIR, os.path.join(cgp.BUILD_DIR, "k7_phases",
+                                                        "liblehmer_euclid_phases.so"))
     cgp.build()
+    k7_clock.finish(fail)
     report_build(cgp)
+    check_k7_spills(cgp)
     check_sass(cgp)
 
     rng = random.Random(SEED)
@@ -2062,7 +2098,7 @@ def main() -> int:
           for B in (KERNEL_B, RAGGED_B, SMALL_B)}
     limb_k = check_limb_kernels(torch, cgp, lb, rng)
     ncg = f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True)
-    k7 = {B: check_k7(torch, cgp, ncg, lb, gmp, hsm, bform_from_forms, rng, B)
+    k7 = {B: check_k7(torch, cgp, ncg, lb, gmp, hsm, bform_from_forms, rng, B, k7_clock)
           for B in (KERNEL_B, RAGGED_B, SMALL_B)}
     log(f"kernel checks: {time.perf_counter() - t:.1f} s")
 

@@ -400,61 +400,160 @@ __device__ __forceinline__ float sum_xla_row(const float (&t)[32], int n) {
   return xla_lanes<8, 4>(t, off);
 }
 
-// rl.value_est_ordered: value_est with the mantissa rounded step by step
-// in the order XLA's CPU backend sums the JAX package's value_est
-// (rl._sum_ordered), so that every decision taken on it is the plain
-// version's. A term is limb i times 2^(16 (i - top)), exact in f32; only
-// limbs top - 7 .. top give nonzero terms (pow2f is 0 below 2^-126), and
-// adding a zero is exact, so the sum runs over those eight, gathered to
-// every thread by eight shuffles, in the order the whole row's sum meets
-// them: left to right for rows of at most 18 limbs; for rows past 32,
-// whose windows of 32 limbs (after (32 - W % 32) % 32 / 2 zeros in front)
-// are summed left to right and then added left to right, the eight split
-// at the window cut into two left-to-right sums that are then added. A row
-// of 19-32 limbs (one limb a thread) takes all its terms by 32 shuffles
-// and sum_xla_row.
-template <int NPT>
-__device__ __forceinline__ void value_est_ordered(const int (&x)[NPT],
-                                                  int lane, int W,
-                                                  float& mant, int& top) {
-  int tl = 0;
+// v * 2^E exactly, for |v| <= 2^22 and -112 <= E <= 0: v added into the
+// mantissa of 1.5 * 2^(23 + E), whose unit is 2^E, and that number taken
+// away again (an integer and a float add in place of a conversion and a
+// product; the shorter of the two on K7's estimates).
+__device__ __forceinline__ float magic_term(int v, int E) {
+  const float m = __int_as_float((150 + E) << 23 | 0x400000);  // 1.5 * 2^(23 + E)
+  return __int_as_float(__float_as_int(m) + v) - m;
+}
+
+// rl._log2_f32 and bits_est, bit for bit, with the exponent and 16 top
+// converted as magic_term does (K7's estimates; K2 keeps bits_est).
+__device__ __forceinline__ float bits_est_magic(float mant, int top) {
+  const float tiny = 1e-30f;
+  const float v = fabsf(mant);
+  const int bits = __float_as_int(fmaxf(v, tiny));
+  const float e = magic_term((bits >> 23) - 127, 0);
+  const float frac = __int_as_float((bits & 0x7FFFFF) | (127 << 23));
+  const float approx = e + (frac - 1.0f) * (2.0f - frac * 0.5f) * 0.7219281f;
+  return magic_term(16 * top, 0) + (v <= tiny ? -200.0f : approx);
+}
+
+// rl.value_est_ordered of N rows side by side: value_est with the
+// mantissa rounded step by step in the order XLA's CPU backend sums the
+// JAX package's value_est (rl._sum_ordered), so that every decision taken
+// on it is the plain version's. A term is limb i times 2^(16 (i - top)),
+// exact in f32; only limbs top - 7 .. top give nonzero terms (pow2f is 0
+// below 2^-126), and adding a zero is exact, so the sum runs over those
+// eight, in the order the whole row's sum meets them: left to right for
+// rows of at most 18 limbs; for rows past 32, whose windows of 32 limbs
+// (after (32 - W % 32) % 32 / 2 zeros in front) are summed left to right
+// and then added left to right, the eight split at the window cut into
+// two left-to-right sums that are then added. The rows' top limbs come
+// from N warp maxima taken back to back; the rows are staged in `stage`
+// (N rows of 8 + 32 NPT ints in this warp's shared memory, the first 8
+// zero: limb i at 8 + i, so limbs below 0 read as 0) and every thread
+// reads the eight terms of each row by broadcast loads. A row of 19-32
+// limbs (one limb a thread) takes all its terms by 32 shuffles and
+// sum_xla_row.
+// BALANCED: the limbs below each row's top are below 2^22 in magnitude (a
+// carried row), so each of their terms converts as magic_term does; else
+// by I2F and a product.
+template <int NPT, int N, bool BALANCED>
+__device__ __forceinline__ void value_est_ordered_rows(
+    const int (&x)[N][NPT], int (*stage)[8 + 32 * NPT], int lane, int W,
+    float (&mant)[N], int (&top)[N]) {
+  int tl[N];  // each thread's highest nonzero limb, a max over its limbs
 #pragma unroll
-  for (int j = 0; j < NPT; j++)
-    if (x[j] != 0) tl = lane * NPT + j;
-  top = __reduce_max_sync(WL_FULL, tl);
+  for (int r = 0; r < N; r++) {
+    tl[r] = 0;
+#pragma unroll
+    for (int j = 0; j < NPT; j++) tl[r] = max(tl[r], x[r][j] != 0 ? lane * NPT + j : 0);
+  }
+#pragma unroll
+  for (int r = 0; r < N; r++) top[r] = __reduce_max_sync(WL_FULL, tl[r]);
   if (NPT == 1 && W > 18) {
-    const float mine = (float)x[0] * pow2f(16 * (lane - top));
-    float t[32];
 #pragma unroll
-    for (int i = 0; i < 32; i++) t[i] = __shfl_sync(WL_FULL, mine, i);
-    mant = sum_xla_row(t, W);
+    for (int r = 0; r < N; r++) {
+      const float mine = (float)x[r][0] * pow2f(16 * (lane - top[r]));
+      float t[32];
+#pragma unroll
+      for (int i = 0; i < 32; i++) t[i] = __shfl_sync(WL_FULL, mine, i);
+      mant[r] = sum_xla_row(t, W);
+    }
     return;
   }
-  float term[8];
+  __syncwarp();  // the previous reads of the stage are done
 #pragma unroll
-  for (int k = 0; k < 8; k++) {  // limb top - 7 + k, from the thread owning it
-    const int i = top - 7 + k;
-    const int owner = i < 0 ? 0 : i / NPT;
-    const int slot = i - owner * NPT;
-    int v = 0;
+  for (int r = 0; r < N; r++) {
 #pragma unroll
-    for (int j = 0; j < NPT; j++)
-      if (j == slot) v = x[j];
-    v = __shfl_sync(WL_FULL, v, owner);
-    term[k] = i < 0 ? 0.0f : (float)v * pow2f(16 * (k - 7));
+    for (int j = 0; j < NPT; j++) stage[r][8 + lane * NPT + j] = x[r][j];
   }
-  float acc = 0.0f, win = 0.0f;
+  __syncwarp();
   const int front = ((32 - W % 32) % 32) / 2;
 #pragma unroll
-  for (int k = 0; k < 8; k++) {
-    const int i = top - 7 + k;
-    if (W > 32 && k > 0 && i > 0 && ((i + front) & 31) == 0) {
-      acc = acc + win;
-      win = 0.0f;
+  for (int r = 0; r < N; r++) {
+    // the term k (limb top - 7 + k) that opens a window, if any (else 8):
+    // the terms before it and from it on are two left-to-right sums, each
+    // with the other's terms as zeros (exact: no term or sum is -0)
+    int kc = (32 - ((top[r] - 7 + front) & 31)) & 31;
+    if (!(W > 32 && kc >= 1 && kc <= 7 && top[r] - 7 + kc > 0)) kc = 8;
+    float left = 0.0f, right = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 8; k++) {
+      const int v = stage[r][top[r] + 1 + k];
+      const float term = BALANCED && k < 7 ? magic_term(v, 16 * (k - 7))
+                                           : (float)v * pow2f(16 * (k - 7));
+      left = left + (k < kc ? term : 0.0f);
+      right = right + (k < kc ? 0.0f : term);
     }
-    win = win + term[k];
+    mant[r] = left + right;
   }
-  mant = acc + win;
+}
+
+// rl.carry_pass of N rows side by side: the N carries that cross threads
+// go by N independent shuffles; a limb's balanced low part,
+// ((v + 2^15) mod 2^16) - 2^15, is its low 16 bits sign-extended.
+template <int NPT, int N>
+__device__ __forceinline__ void carry_pass_rows(int (&x)[N][NPT], int lane,
+                                                int W) {
+  int cin[N];
+#pragma unroll
+  for (int r = 0; r < N; r++)
+    cin[r] = __shfl_up_sync(WL_FULL, (int)((uint32_t)x[r][NPT - 1] + 32768u) >> 16, 1);
+#pragma unroll
+  for (int r = 0; r < N; r++) {
+    int prev = lane == 0 ? 0 : cin[r];
+#pragma unroll
+    for (int j = 0; j < NPT; j++) {
+      const int i = lane * NPT + j, v = x[r][j];
+      const int c = (int)((uint32_t)v + 32768u) >> 16;
+      x[r][j] = i < W - 1 ? (int)(int16_t)v + prev : (i == W - 1 ? v + prev : 0);
+      prev = c;
+    }
+  }
+}
+
+// floor(f) for |f| < 2^22: f added to 1.5 * 2^23 rounding down (unit 1),
+// read back from the bits (where F2I would queue on the conversion unit).
+// Monotone in f for f > -1.5 * 2^23, and of magnitude >= 2^22 past 2^22.
+__device__ __forceinline__ int floor_small(float f) {
+  return __float_as_int(__fadd_rd(f, 12582912.0f)) - 0x4B400000;
+}
+
+// 1 / b as f32 within 2^-23 (MUFU.RCP alone: PTX rcp.approx.ftz, no
+// range handling, which |b| < 2^31 does not need). Volatile, so that it
+// issues where it is written, ahead of the branches that use it.
+__device__ __forceinline__ float rcp_f32(float b) {
+  float r;
+  asm volatile("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(b));
+  return r;
+}
+
+// floor(a / b) for |a| < 2^28 and |b| >= 33 with no integer division,
+// from the estimate qe of a / b (relative error below 2^-20, as (float)a *
+// rcp_f32((float)b) has: three roundings to f32 and the reciprocal's
+// 2^-23): qe floored as floor_small does, then one correction by the
+// remainder r = a - q b taken with b's sign on both, from sa = s a and
+// nb = -s b (s = sign b; both off the quotient's chain). Exact where |a /
+// b| < 2^19 (qe within half of a / b, r in int32); elsewhere, since
+// floor_small's reading of the bits is monotone below 1.5 * 2^23 (|qe| <
+// 2^28 / 33 is), a value of a / b's sign and magnitude above 2^18, which a
+// clip to |q| <= 2^13 takes to the same bound as the floor.
+__device__ __forceinline__ int floor_quot(int sa, int nb, float qe) {
+  const int q = floor_small(qe);
+  const int r = (int)((uint32_t)sa + (uint32_t)q * (uint32_t)nb);
+  return q + (r >> 31) - ((-nb - 1 - r) >> 31);  // -1 if r < 0, +1 if r >= |b|
+}
+
+// floor(n / e) for 0 <= n < 2^14, 1 <= e < 2^14: the estimate and one
+// correction, as floor_quot.
+__device__ __forceinline__ int quot_small(int n, int e) {
+  const int q = floor_small((float)n * rcp_f32((float)e));
+  const int r = n - q * e;
+  return q + (r >= e) - (r < 0);
 }
 
 // ---- 64-bit steering (K3) and int64 limb sums (K2, K3)

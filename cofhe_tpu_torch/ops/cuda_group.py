@@ -51,14 +51,16 @@ source notes say more.
 * K7 `lehmer_euclid` (csrc/lehmer_euclid.cu) replaces the XLA while loop
   of rl.py::lehmer_euclid, the opt-in NUCOMP tail's Lehmer walk: grouped
   continued-fraction steps on f32 top-word estimates summed in XLA-CPU's
-  order, a 2^13 matrix applied to six redundant rows, each lane leaving on
-  its own and a second pass giving the stopped lanes the batch loop's
-  carry passes; its plain version is rl.lehmer_euclid, whose limbs, `par`
-  and working groups it matches.
+  order (three rows side by side), their quotients from f32 reciprocals
+  with no integer division, a 2^13 matrix applied to six redundant rows,
+  a warp a block, each lane leaving on its own and a second pass giving
+  the stopped lanes the batch loop's carry passes; its plain version is
+  rl.lehmer_euclid, whose limbs, `par` and working groups it matches.
 
 The main path runs 97% of K2's and K3's launches at 128-256 lanes, where a
 kernel's time is the latency of one warp's loop rather than the card's
-rate; every kernel runs four warps a block. The earlier plain versions,
+rate; the kernels the main path runs have four warps a block (K7, off
+the main path, one). The earlier plain versions,
 rl.mod_topdown and forms2.grouped_rho_loop, stay as references.
 
 The dispatchers `xgcd_coeff_g`, `mod_topdown`, `reduce2_grouped_loop`,
@@ -571,7 +573,7 @@ def lehmer_euclid_cuda(r0_mag, r1_mag, bits_stop, max_groups: int,
         act = active.contiguous()
     rows = [torch.empty_like(r0_mag) for _ in range(6)]
     par = torch.empty(B, dtype=torch.int32, device=dev)
-    work = torch.empty(B + 1, dtype=torch.int32, device=dev)
+    work = torch.empty(B + 2, dtype=torch.int32, device=dev)
     _launch(("lehmer_euclid", L, int(max_groups), B), r0_mag, r0_mag.data_ptr(),
             r1_mag.data_ptr(), bits_stop.data_ptr(),
             None if act is None else act.data_ptr(),

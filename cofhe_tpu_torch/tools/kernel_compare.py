@@ -36,8 +36,16 @@ measurement. From the root of a checkout, the script:
    the same for both);
 5. times K5m and KT against the baseline's on chip_smoke's synthetic
    operands at 128, 1001 and 16384 lanes (K5m at compose2's product
-   shapes; KT with and without deep-tail lanes, and on reduced forms);
+   shapes; KT with and without deep-tail lanes, and on reduced forms), and
+   K7 on chip_smoke's compose2 walk operands at the same batches;
 6. profiles one eager compose2 at 128 lanes with each set of kernels.
+
+With --k7-phases it runs K7 alone: the SASS of both trees' K7 instances
+at NPT = 5 (instructions by kind; in a build with -DK7_PHASES also those
+between consecutive clock reads), K7 against the baseline's in turns on
+the walk operands at 128, 1001 and 16384 lanes, and each tree's split of
+a group's clock64() cycles by phase, where its source has the K7_PHASES
+hooks (PhaseLib).
 
 Any disagreement raises. chip_smoke.py stays the check the port must pass;
 this script only measures.
@@ -52,6 +60,7 @@ import ctypes
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -170,7 +179,7 @@ class Baseline:
         B, L = r0.shape
         rows = [torch.empty_like(r0) for _ in range(6)]
         par = torch.empty(B, dtype=torch.int32, device=r0.device)
-        work = torch.empty(B + 1, dtype=torch.int32, device=r0.device)
+        work = torch.empty(B + 2, dtype=torch.int32, device=r0.device)
         self._call(torch, "lehmer_euclid", r0.data_ptr(), r1.data_ptr(), stop.data_ptr(),
                    self._ptr(active), *(r.data_ptr() for r in rows), par.data_ptr(),
                    self._ptr(iters), work.data_ptr(), B, L, int(max_groups),
@@ -318,20 +327,18 @@ def nucomp_operands(torch, smoke, cgp, port, main) -> dict:
     return rec.ops
 
 
-def compare_k7(torch, smoke, cgp, base, key, args) -> None:
-    """K7 on its recorded operands: against its plain version, and against
+def compare_k7(torch, smoke, cgp, base, label, B, W, r0, r1, stop, mg, active=None):
+    """K7 on one set of operands: against its plain version, and against
     the baseline's K7 in turns where the baseline has one, else timed
     beside the plain version."""
-    name, W, _, B = key
-    r0, r1, stop, mg, active = args
-    it_new = smoke.k7_compare(torch, cgp, smoke.row_name(key), r0, r1, stop, mg, active)
+    it_new = smoke.k7_compare(torch, cgp, label, r0, r1, stop, mg, active)
     bms = smoke.k7_bound(it_new, B, W)[0]
     new_fn = lambda: cgp.lehmer_euclid_cuda(r0, r1, stop, mg, active=active)  # noqa: E731
-    if name not in base.kernels:
+    if "lehmer_euclid" not in base.kernels:
         ms = smoke.timed(torch, new_fn, smoke.TIMING_REPS)
         plain_ms = smoke.timed(torch, lambda: cgp.lehmer_euclid_plain(
             r0, r1, stop, mg, active=active), 1, warm=False)
-        smoke.log(f"compare {smoke.row_name(key)}: the baseline has no K7; bit-exact vs "
+        smoke.log(f"compare {label}: the baseline has no K7; bit-exact vs "
                   f"the plain version, groups {smoke._stats(it_new)}; kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.1f} ms, bound {bms:.5f} ms ({bms / ms:.1%} of it)")
         return
@@ -340,13 +347,125 @@ def compare_k7(torch, smoke, cgp, base, key, args) -> None:
     if smoke.max_abs_diff(torch, old, cgp.lehmer_euclid_cuda(r0, r1, stop, mg,
                                                              active=active)) \
             or not torch.equal(it_new, it_old):
-        smoke.fail(f"{smoke.row_name(key)}: the baseline kernel disagrees")
+        smoke.fail(f"{label}: the baseline kernel disagrees")
     ms, old_ms, t, reps = in_turns(torch, smoke, new_fn, lambda: base.lehmer_euclid(
         torch, r0, r1, stop, mg, active=active))
-    smoke.log(f"compare {smoke.row_name(key)}: this kernel {ms:.4f} ms, baseline "
-              f"{old_ms:.4f} ms, {old_ms / ms:.2f}x (groups {smoke._stats(it_new)}, "
-              f"bound {bms:.5f} ms); turns {t['old'][0]:.4f} {t['new'][0]:.4f} "
-              f"{t['new'][1]:.4f} {t['old'][1]:.4f} ms, {reps} calls each")
+    smoke.log(f"compare {label}: this kernel {ms:.4f} ms ({bms / ms:.1%} of its bound), "
+              f"baseline {old_ms:.4f} ms ({bms / old_ms:.1%}), {old_ms / ms:.2f}x (groups "
+              f"{smoke._stats(it_new)}, bound {bms:.5f} ms); turns {t['old'][0]:.4f} "
+              f"{t['new'][0]:.4f} {t['new'][1]:.4f} {t['old'][1]:.4f} ms, {reps} calls each")
+
+
+def k7_walk(torch, smoke, cgp, port, base, hsm, cg, gmp, rng, phases=None) -> None:
+    """K7 on chip_smoke's compose2 walk operands at 128, 1001 and 16384
+    lanes: against its plain version and the baseline's K7 in turns, and,
+    with `phases` ({label: PhaseLib}), each instrumented build's split of
+    a group's cycles."""
+    ncg = port.f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True)
+    for B in (smoke.SMALL_B, smoke.RAGGED_B, smoke.KERNEL_B):
+        r0, r1, stop = smoke.k7_walk_operands(torch, ncg, gmp, hsm, port.bform_from_forms,
+                                              rng, B)
+        label = f"lehmer_euclid[W={ncg.L},compose2 walk]@B={B}"
+        with torch.inference_mode():
+            compare_k7(torch, smoke, cgp, base, label, B, ncg.L, r0, r1, stop, ncg.eu_groups)
+            for who, lib in (phases or {}).items():
+                lib.split(torch, smoke, f"{label} {who}", r0, r1, stop, ncg.eu_groups)
+
+
+# phase clock slots of csrc/lehmer_euclid.cu built with -DK7_PHASES
+K7_PHASES = ("est", "sim", "digit", "apply", "idle", "other")
+K7_KINDS = ("sim", "digit", "idle")
+
+
+class PhaseLib:
+    """A K7 source built with -DK7_PHASES: each lane's clock64() cycles in
+    each phase of its groups (three ordered estimates; the Lehmer
+    simulation; the big-lane digit step; the matrix apply with its carry
+    passes; an idle group's carry passes; the rest: loads, stores, row
+    hand-out, loop) and its groups of each kind."""
+
+    def __init__(self, cgp, csrc: str, out: str):
+        self.cgp, self.out = cgp, out
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        self.proc = subprocess.Popen(
+            [cgp._nvcc(), *cgp.NVCC_FLAGS, "-DK7_PHASES", "-o", out,
+             os.path.join(csrc, "lehmer_euclid.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    @staticmethod
+    def has_hooks(csrc: str) -> bool:
+        with open(os.path.join(csrc, "lehmer_euclid.cu")) as f:
+            return "K7_PHASES" in f.read()
+
+    def finish(self, fail) -> None:
+        text, _ = self.proc.communicate()
+        if self.proc.returncode:
+            fail(f"K7 with -DK7_PHASES did not build:\n{text}")
+        self.fn = ctypes.CDLL(self.out).lehmer_euclid_phases_launch
+        self.fn.restype = ctypes.c_int
+        self.fn.argtypes = self.cgp._ARGTYPES["lehmer_euclid"][:-1] + [ctypes.c_void_p] * 2
+
+    def split(self, torch, smoke, label, r0, r1, stop, mg) -> None:
+        B, L = r0.shape
+        rows = [torch.empty_like(r0) for _ in range(6)]
+        par = torch.empty(B, dtype=torch.int32, device=r0.device)
+        work = torch.empty(B + 2, dtype=torch.int32, device=r0.device)
+        ph = torch.zeros((B, len(K7_PHASES) + len(K7_KINDS)), dtype=torch.int64,
+                         device=r0.device)
+        rc = self.fn(r0.data_ptr(), r1.data_ptr(), stop.data_ptr(), None,
+                     *(r.data_ptr() for r in rows), par.data_ptr(), None, work.data_ptr(),
+                     B, L, int(mg), 8, ph.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            smoke.fail(f"K7 phases launch failed: cudaError {rc}")
+        torch.cuda.synchronize()
+        want = self.cgp.lehmer_euclid_cuda(r0, r1, stop, mg)
+        if smoke.max_abs_diff(torch, [*rows, par], want):
+            smoke.fail(f"{label}: the instrumented K7 disagrees")
+        tot = ph.sum(0).tolist()
+        cyc, kinds = tot[:len(K7_PHASES)], dict(zip(K7_KINDS, tot[len(K7_PHASES):]))
+        groups = max(sum(kinds.values()), 1)
+        all_cyc = max(sum(cyc), 1)
+        # each phase's cycles over the groups that run it
+        runs = {"sim": kinds["sim"], "digit": kinds["digit"], "apply": kinds["sim"],
+                "idle": kinds["idle"]}
+        lane_cyc = ph[:, :len(K7_PHASES)].sum(1).double()
+        smoke.log(f"k7 phases {label}: groups a lane {groups / B:.2f} ("
+                  + ", ".join(f"{k} {v / B:.2f}" for k, v in kinds.items())
+                  + f"), {all_cyc / groups:.0f} cycles a group; "
+                  + "; ".join(f"{k} {c / groups:.0f} a group ({c / all_cyc:.1%})"
+                              + (f", {c / max(runs[k], 1):.0f} a {k} group"
+                                 if k in runs else "")
+                              for k, c in zip(K7_PHASES, cyc))
+                  + f"; cycles a lane mean {lane_cyc.mean().item():.0f}, max "
+                  f"{lane_cyc.max().item():.0f}")
+
+
+def k7_sass(smoke, cgp, libs) -> None:
+    """SASS of each K7 library's instances at NPT = 5 (compose2's width
+    144): instructions in all and by kind; in an instrumented build also
+    the instructions between consecutive clock reads, in program order."""
+    kinds = ("SHFL", "REDUX", "VOTE", "MUFU", "I2FP", "F2I", "IMAD", "IADD3", "ISETP",
+             "FADD", "FMUL", "BRA", "ATOMG", "BAR")
+    for label, lib in libs.items():
+        for fn, body in sorted(smoke.sass_functions(cgp._nvcc(), lib).items()):
+            m = re.search(r"(lehmer_euclid_(?:walk|finish))_kernelILi(\d+)E", fn)
+            if not m or m.group(2) != "5":
+                continue
+            ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                             body, re.M)
+            cnt = {k: sum(o == k for o in ops) for k in kinds}
+            line = (f"sass {label} {m.group(1)}_kernel<5>: {len(ops)} instructions; "
+                    + ", ".join(f"{k} {n}" for k, n in cnt.items()))
+            if "clock" in label:
+                segs, n = [], 0
+                for ln in body.splitlines():
+                    if re.search(r"/\*[0-9a-f]{4,}\*/", ln):
+                        n += 1
+                        if "SR_CLOCKLO" in ln:
+                            segs.append(n)
+                            n = 0
+                line += f"; between clock reads {segs + [n]}"
+            smoke.log(line)
 
 
 def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
@@ -355,7 +474,9 @@ def compare_row(torch, smoke, cgp, cg, base, key, args) -> None:
     and limbs)."""
     name, W, _, B = key
     if name == "lehmer_euclid":
-        compare_k7(torch, smoke, cgp, base, key, args)
+        r0, r1, stop, mg, active = args
+        compare_k7(torch, smoke, cgp, base, smoke.row_name(key), B, W, r0, r1, stop, mg,
+                   active)
         return
     if name not in base.kernels:
         smoke.log(f"compare {name}[W={W}]@B={B}: the baseline has no such kernel")
@@ -486,6 +607,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-csrc", required=True,
                     help="a csrc/ directory with the earlier kernel sources")
+    ap.add_argument("--k7-phases", action="store_true",
+                    help="K7 only: its time beside the baseline's on compose2 walk "
+                    "operands at 128, 1001 and 16384 lanes, the split of a group's "
+                    "cycles by phase (builds with -DK7_PHASES, of the baseline too "
+                    "where its source has the hooks) and SASS counts")
     opts = ap.parse_args()
     import torch
 
@@ -504,17 +630,36 @@ def main() -> int:
     if port.hostgmp.get_lib() is None:
         smoke.fail("the GMP host backend (g++ + libgmp) did not build")
     base = Baseline(opts.baseline_csrc, cgp, smoke.fail)
+    if opts.k7_phases:
+        base.kernels = [n for n in base.kernels if n == "lehmer_euclid"]
     base.start()
+    phases = {}
+    if opts.k7_phases:
+        for who, csrc in (("this checkout", cgp.CSRC_DIR), ("baseline", opts.baseline_csrc)):
+            if PhaseLib.has_hooks(csrc):
+                phases[who] = PhaseLib(cgp, csrc, os.path.join(
+                    base.out_dir, f"liblehmer_euclid_phases_{who.split()[0]}.so"))
     cgp.build()
     base.finish()
+    for lib in phases.values():
+        lib.finish(smoke.fail)
     smoke.report_build(cgp)
     smoke.log(f"baseline kernels built from {opts.baseline_csrc}")
-    sass_compare(smoke, cgp, base)
 
     rng = random.Random(smoke.SEED)
     hsm = port.CLHSM2k(smoke.SEC, smoke.K)
     cg = port.TorchEngine(hsm, "cuda").cg
     gmp = port.hostgmp.GmpClassGroup(hsm.Delta)
+    if opts.k7_phases:
+        libs = {"this checkout": cgp._lib_path("lehmer_euclid")}
+        if "lehmer_euclid" in base.kernels:
+            libs["baseline"] = os.path.join(base.out_dir, "liblehmer_euclid.so")
+        libs.update({f"{who} clock": lib.out for who, lib in phases.items()})
+        k7_sass(smoke, cgp, libs)
+        k7_walk(torch, smoke, cgp, port, base, hsm, cg, gmp, rng, phases)
+        smoke.log(smi)
+        return 0
+    sass_compare(smoke, cgp, base)
     from cofhe_tpu_torch.ops import graphs
     from cofhe_tpu_torch.tools import mesh_check
 
@@ -530,6 +675,7 @@ def main() -> int:
         for key in sorted(ops, key=lambda k: (k[3], k[0], k[1])):
             compare_row(torch, smoke, cgp, cg, base, key, ops[key])
         compare_synthetic(torch, smoke, cgp, port, base, cg, gmp, hsm, rng)
+    k7_walk(torch, smoke, cgp, port, base, hsm, cg, gmp, rng)
     ecg = port.TorchEngine(hsm, "cuda", graphs=False).cg
     smoke.profile_compose(torch, ecg, gmp, hsm, port.bform_from_forms, rng,
                           "this checkout's kernels, eager")

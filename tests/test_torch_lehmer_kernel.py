@@ -17,6 +17,14 @@ with quotient gaps past 2^13 (the digit step), inactive lanes, lanes
 finished at entry, lanes stopped by the y cap and lanes cut at max_groups.
 Change the model with the kernel.
 
+The model's simulation is the kernel's: no integer division on the
+common path (the quotient from an f32 estimate, floored by a magic-number
+add and corrected once by its remainder; the 2^13 clip tested with one
+product and its bound divided only where it binds). It is held to the
+plain version's floor-division steps on random and edge top words and
+matrix states, with the estimate off by up to 2^-20 either way (the
+kernel's reciprocal and roundings stay below that).
+
 On a CUDA card (`-m cuda`): K7 against the plain version on the card, and
 the NUCOMP compose2 by graph replay against the eager NUCOMP compose2 and
 the default compose2. Tolerance: exact equality everywhere.
@@ -103,14 +111,21 @@ def _est(x, L):
         for i, v in terms:
             t[i] = v
         mant = _xla_row(t, L)
-    else:  # left to right, cut at the windows of 32 above 32 limbs
+    else:  # left to right, cut at the windows of 32 above 32 limbs: the
+        # terms k = 0..7 (limb top - 7 + k, 0 below limb 0) before the term
+        # kc that opens a window and from it on, as two sums in order, each
+        # with the other's terms as zeros
         front = ((32 - L % 32) % 32) // 2
-        acc = win = F32(0.0)
-        for i, v in terms:
-            if L > 32 and (i + front) % 32 == 0:
-                acc, win = acc + win, F32(0.0)
-            win = win + v
-        mant = acc + win
+        kc = (32 - ((top - 7 + front) & 31)) & 31
+        if not (L > 32 and 1 <= kc <= 7 and top - 7 + kc > 0):
+            kc = 8
+        val = dict(terms)
+        left = right = F32(0.0)
+        for k in range(8):
+            v = val.get(top - 7 + k, F32(0.0))
+            left = left + (v if k < kc else F32(0.0))
+            right = right + (F32(0.0) if k < kc else v)
+        mant = left + right
     return mant, top, _bits(mant, top)
 
 
@@ -124,6 +139,77 @@ def _carry(x):
 
 def _fdiv(a, b):
     return a // b  # Python's floor division, as torch's rounding_mode="floor"
+
+
+def _wrap32(x):
+    return ((x + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def _f32_quot(a, b, rel):
+    """An f32 estimate of a / b off by the factor 1 + rel (the kernel's
+    __fdividef of two rounded operands is within 2^-20 of it)."""
+    return float(F32(float(F32(a) / F32(b)) * (1.0 + rel)))
+
+
+def _floor_small(f):
+    """wl::floor_small: f added to 1.5 * 2^23 rounding down, the sum's f32
+    bits less those of 1.5 * 2^23."""
+    t = F32(f) + F32(12582912.0)
+    if float(t) > float(f) + 12582912.0:  # rounded up: step down one f32 unit
+        t = np.nextafter(t, F32(-np.inf))
+    return int(np.array(t, F32).view(np.int32)) - 0x4B400000
+
+
+def _floor_quot(a, b, rel=0.0):
+    """wl::floor_quot: the estimate read as floor_small does, then one
+    correction by the remainder taken with b's sign on both, computed mod
+    2^32 as the kernel does."""
+    q = _floor_small(_f32_quot(a, b, rel))
+    s = -1 if b < 0 else 1
+    r = _wrap32(s * a + q * -s * b)
+    return q + (r >> 31) - ((s * b - 1 - r) >> 31)
+
+
+def _quot_small(n, e, rel=0.0):
+    """wl::quot_small: floor(n / e) for 0 <= n, 1 <= e below 2^14."""
+    q = int(np.floor(F32(_f32_quot(n, e, rel))))
+    r = n - q * e
+    return q + (r >= e) - (r < 0)
+
+
+def _sim_plain(up, vc, m, sim_steps=8):
+    """The plain version's continued-fraction steps of one lane: floor
+    divisions for the quotient and its bound."""
+    parg = 0
+    for _ in range(sim_steps):
+        qmax = _fdiv(LIM - max(abs(m[0]), abs(m[1])), max(abs(m[2]), abs(m[3]), 1))
+        if not (abs(vc) > 32 and qmax > 0):
+            break
+        q = min(max(_fdiv(up, vc), -qmax), qmax)
+        up, vc = vc, up - q * vc
+        m = [m[2], m[3], m[0] - q * m[2], m[1] - q * m[3]]
+        parg ^= 1
+    return up, vc, m, parg
+
+
+def _sim_k7(up, vc, m, sim_steps=8, rel=0.0):
+    """K7's steps: the quotient from floor_quot, the clip tested with one
+    product and its bound computed only where it binds, `can` one
+    comparison."""
+    parg = 0
+    for _ in range(sim_steps):
+        emax = max(abs(m[2]), abs(m[3]), 1)
+        room = LIM - max(abs(m[0]), abs(m[1]))
+        if not (abs(vc) > 32 and room >= emax):
+            break
+        q = _floor_quot(up, vc, rel)
+        if min(abs(q), 1 << 14) * emax > room:
+            qmax = _quot_small(room, emax, rel)
+            q = -qmax if q < 0 else qmax
+        up, vc = vc, _wrap32(up - q * vc)
+        m = [m[2], m[3], _wrap32(m[0] - q * m[2]), _wrap32(m[1] - q * m[3])]
+        parg ^= 1
+    return up, vc, m, parg
 
 
 def _digit(mx, tx, mm, tm):
@@ -174,16 +260,7 @@ def _group(s, w, lane, L, sim_steps):
         return wf, True, False
     sh = max(bp, bc) - F32(26.0)
     up, vc = _top_word(mp, tp, sh), _top_word(mc, tc, sh)
-    m = [1, 0, 0, 1]
-    parg = 0
-    for _ in range(sim_steps):
-        qmax = _fdiv(LIM - max(abs(m[0]), abs(m[1])), max(abs(m[2]), abs(m[3]), 1))
-        if not (abs(vc) > 32 and qmax > 0):
-            break
-        q = min(max(_fdiv(up, vc), -qmax), qmax)
-        up, vc = vc, up - q * vc
-        m = [m[2], m[3], m[0] - q * m[2], m[1] - q * m[3]]
-        parg ^= 1
+    _, _, m, parg = _sim_k7(up, vc, [1, 0, 0, 1], sim_steps)
     for p, c in (("rp", "rc"), ("xp", "xc"), ("yp", "yc")):
         s[p], s[c] = (_carry(m[0] * s[p] + m[1] * s[c]),
                       _carry(m[2] * s[p] + m[3] * s[c]))
@@ -192,9 +269,10 @@ def _group(s, w, lane, L, sim_steps):
 
 
 def k7_model(r0, r1, stop, max_groups, active=None, sim_steps=8):
-    """K7's schedule on numpy (B, L) magnitudes: kernel A lane by lane,
-    then kernel B. Returns the seven outputs, iters and the lanes kernel B
-    changed."""
+    """K7's schedule on numpy (B, L) magnitudes: kernel A lane by lane, in
+    the order its warps take them, then kernel B, a chunk of 32 lanes at a
+    time, the lanes its ballot marks. Returns the seven outputs, iters and
+    the lanes kernel B changed."""
     B, L = r0.shape
     lanes, states, stops, gs = [], [], [], []
     for b in range(B):
@@ -221,9 +299,10 @@ def k7_model(r0, r1, stop, max_groups, active=None, sim_steps=8):
         stops.append(-1 if done or g == max_groups else g)
     G = min(max(gs), max_groups)  # the batch loop's groups
     changed = []
-    for b, (lane, s, t) in enumerate(zip(lanes, states, stops)):
-        if t < 0 or t >= G:
-            continue
+    todo = [b for first in range(0, B, 32) for b in range(first, min(first + 32, B))
+            if 0 <= stops[b] < G]
+    for b in todo:
+        lane, s, t = lanes[b], states[b], stops[b]
         before = {k: v.copy() for k, v in s.items() if k.startswith(("r", "x", "y"))}
         w = False
         for _ in range(t, G):
@@ -239,6 +318,107 @@ def k7_model(r0, r1, stop, max_groups, active=None, sim_steps=8):
     par = np.array([s["par"] for s in states], np.int32)
     iters = np.array([s["count"] for s in states], np.int32)
     return rows + (par,), iters, changed
+
+
+# ------------------------------------------- the division-free Lehmer step
+
+RELS = (-2.0 ** -20, 0.0, 2.0 ** -20)  # the estimate's error, both ways
+QMAXES = (1, 2, 3, 4095, 8191)
+
+
+def _quot_cases(seed, n):
+    """(a, b) pairs: random |a|, |b| < 2^28 of both signs (|b| >= 33, as
+    `can` leaves it), and the edges: |b| = 33, |a| < |b|, exact multiples
+    and their neighbours at quotients 0, +-1, +-qmax, +-qmax +- 1, +-2^13,
+    around +-2^14, +-2^19 and +-2^20, and a at +-(2^28 - 1)."""
+    rng = random.Random(seed)
+    out = []
+    for _ in range(n):
+        b = rng.randrange(33, 1 << rng.randrange(6, 29)) * rng.choice((-1, 1))
+        out.append((rng.randrange(-(1 << 28) + 1, 1 << 28), b))
+        out.append((rng.randrange(-(1 << rng.randrange(1, 29)), 1 << 28) // 3, b))
+    qs = {0, 1, 2, 3, 4, 4094, 4095, 4096, 8190, 8191, 8192, 8193}
+    qs |= set(range((1 << 14) - 5, (1 << 14) + 6)) | set(range((1 << 19) - 3, (1 << 19) + 3)) | set(range((1 << 20) - 3, (1 << 20) + 3))
+    for _ in range(n // 4):
+        b = rng.choice((33, 34, rng.randrange(33, 1 << 14), rng.randrange(1 << 14, 1 << 28)))
+        b *= rng.choice((-1, 1))
+        for q in qs:
+            for sq in (-1, 1):
+                for d in (0, 1, -1, abs(b) - 1, 1 - abs(b)):
+                    a = sq * q * b + d
+                    if abs(a) < 1 << 28:
+                        out.append((a, b))
+        out += [((1 << 28) - 1, b), (1 - (1 << 28), b)]
+        out.append((rng.randrange(-abs(b) + 1, abs(b)), b))  # |a| < |b|
+        out.append((0, b))
+    return out
+
+
+@pytest.mark.parametrize("rel", RELS)
+def test_floor_quot_is_the_floor_division(rel):
+    """wl::floor_quot against Python's floor division: exact while
+    |a / b| < 2^19, past that of the quotient's sign and above 2^18 in
+    magnitude, so every clip to |q| <= qmax <= 2^13 gives the floor
+    division's clipped quotient, for an estimate off by up to 2^-20 either
+    way."""
+    for a, b in _quot_cases(11, 4000):
+        want, got = a // b, _floor_quot(a, b, rel)
+        if abs(a) < (1 << 19) * abs(b):
+            assert got == want, (a, b)
+        else:
+            assert (got > 0) == (want > 0) and abs(got) > 1 << 18, (a, b, got)
+        for qm in QMAXES:
+            assert min(max(got, -qm), qm) == min(max(want, -qm), qm), (a, b, qm)
+
+
+@pytest.mark.parametrize("rel", RELS)
+def test_quot_small_is_the_floor_division(rel):
+    """wl::quot_small, the clip's bound floor((2^13 - epmx) / emax), on
+    every divisor with exact multiples, their neighbours and random
+    numerators below 2^13."""
+    rng = random.Random(12)
+    for e in range(1, LIM):
+        ns = {0, e - 1, e, e + 1, LIM - 1, rng.randrange(LIM)}
+        k = rng.randrange(1, LIM // e + 1)
+        ns |= {k * e - 1, k * e, k * e + 1}
+        for n in ns:
+            if 0 <= n < LIM:
+                assert _quot_small(n, e, rel) == n // e, (n, e)
+
+
+def _states(rng, n):
+    """Matrix states (mp0, mp1, mc0, mc1): the identity, random ones, and
+    rows at the edge of the 2^13 bound: epmx + emax = 2^13 (qmax = 1) and
+    epmx + emax = 2^13 + 1 (qmax = 0, the walk stops)."""
+    out = [[1, 0, 0, 1]]
+    for _ in range(n):
+        emax = rng.randrange(1, LIM)
+        for epmx in (LIM - emax, LIM + 1 - emax, rng.randrange(1, LIM - emax + 1)):
+            mp = [epmx * rng.choice((-1, 1)), rng.randrange(-epmx, epmx + 1)]
+            mc = [emax * rng.choice((-1, 1)), rng.randrange(-emax, emax + 1)]
+            rng.shuffle(mp)
+            rng.shuffle(mc)
+            out.append(mp + mc)
+    return out
+
+
+@pytest.mark.parametrize("rel", RELS)
+def test_k7_simulation_is_the_plain_simulation(rel):
+    """K7's continued-fraction steps (the division-free quotient, the clip
+    tested with one product and its bound divided only where it binds, can
+    as one comparison) against the plain version's floor-division steps:
+    the same top words, matrix and parity after up to eight steps, from
+    random and edge states, at random top words of both signs below 2^28
+    and at the edges of _quot_cases."""
+    rng = random.Random(13)
+    states = _states(rng, 300)
+    pairs = _quot_cases(14, 300)
+    for k in range(3000):
+        up, vc = pairs[rng.randrange(len(pairs))] if k % 2 else \
+            (rng.randrange(-(1 << 28) + 1, 1 << 28), rng.randrange(-(1 << 28) + 1, 1 << 28))
+        m = states[k % len(states)]
+        assert _sim_k7(up, vc, m, rel=rel) == _sim_plain(up, vc, m), (up, vc, m)
+        assert _sim_k7(up, vc, m, sim_steps=1, rel=rel) == _sim_plain(up, vc, m, 1)
 
 
 # -------------------------------------------------------------- the lanes
