@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py       # from the root of a checkout
 
-1. Builds the eight Hopper kernels from cofhe_tpu_torch/csrc with nvcc
+1. Builds the ten Hopper kernels from cofhe_tpu_torch/csrc with nvcc
    (one nvcc a source, all started together) and holds each one against
    its plain torch version on the card, at the shapes the main path gives
    it and at 128, 1001 and 16384 lanes (bit-exact, and against Python
@@ -39,7 +39,16 @@
    K7 instance may spill (ptxas), and a build of K7 with -DK7_PHASES
    (tools/kernel_compare.PhaseLib, equal to K7 on the same operands)
    prints the split of a group's cycles by phase (estimates, simulation,
-   digit step, apply, idle carry passes) at 128 and 16384 lanes.
+   digit step, apply, idle carry passes) at 128 and 16384 lanes. K6a,
+   compose2's signed sums canonicalized, at widths 8, 72, 144 and 264 on
+   128, 256 and 16384 lanes (two-term sums with the contract's edge rows
+   first, three-term sums with multipliers 1, -1 and 2 and narrower terms,
+   one redundant term with a top limb that carries; b >> 1 beside; two sums
+   a launch), and K6b, compose2's prologue, on compose2 operand pairs
+   (identities on either side and both, self-composes, inverse pairs,
+   powers of f) at the same batches: bit-exact against their plain
+   versions, K6a against Python integers. No K6a or K6b instance may
+   spill (ptxas).
 2. Drives the main path once at sec=128, k=128 through the facade:
    keygen, encrypt_tensor ct(2x64), scal_ciphertext_tensors with pt(64x64)
    (16384 ladder lanes), decrypt_tensor; every plaintext must equal the
@@ -53,7 +62,7 @@
    The main path's 128 ciphertexts are then decrypted once more by graph
    replays and once by an eager engine (graphs=False): the c1^sk forms and
    the plaintexts must be bit-identical, and the launch counts of all
-   eight kernels equal; both wall times are printed. Operands are recorded from
+   ten kernels equal; both wall times are printed. Operands are recorded from
    the eager calls (a replay calls no wrapper): one decrypt compose2 (128
    lanes) from the eager decrypt, one chain (256) and one ladder (16384)
    compose2 from the graphs' warm-ups. K1 is then checked again, with and
@@ -99,8 +108,12 @@
    the Bezout identity mod m. One compose2 on the same 128 forms is
    profiled four ways: the default tail and the NUCOMP tail, each eager
    and as a graph replay: wall and device time (the device's busy share),
-   device time split by kernel (the eight, and "other": what is left in
-   torch ops), device kernels and copies, and Lehmer groups a lane. Then
+   device time split by kernel (the ten, and "other": what is left in
+   torch ops), device kernels and copies, and Lehmer groups a lane; for
+   the eager ones "other" split by section of compose2 (the prologue, the
+   first-gcd selects, the second-gcd selects, xi / u / mu_red, the a3 / b3
+   / c3 epilogue, the reduction's operands or the NUCOMP tail, the
+   identity selects; compose_sections). Then
    NUCOMP and default compose2, both by graph replay, on the same pairs
    of the main path's forms at 128, 256 and 16384 lanes in turns
    (default, NUCOMP, NUCOMP, default): equal outputs (and equal to GMP),
@@ -121,7 +134,9 @@
    2^12-budget K3), K3 and KT at the legacy path's width 272, and K7 at
    the legacy path's NUCOMP operands. K5m,
    K5d and K4 also against Python integers, with the cuFFT route (their
-   plain versions on the card) as each one's plain time.
+   plain versions on the card) as each one's plain time; K6a at each of
+   compose2's and the NUCOMP tail's calls, also against Python integers,
+   and K6b.
 8. Prints the card's name and power limit, one JSON line with each
    kernel's numbers (launches in all and by path), and as the last line
    {"ok": true, "device": {...}}.
@@ -241,6 +256,20 @@ K5M_EDGE_SHAPES = ((1, 1, 1), (1, 1, 2), (1, 1, 3), (8, 8, 8), (8, 8, 16),
                    (144, 144, 288), (144, 8, 160), (200, 72, 272), (200, 200, 288),
                    (264, 264, 264), (264, 8, 272), (264, 24, 288), (288, 288, 288),
                    (288, 1, 288), (1, 288, 288), (288, 288, 1))
+# K6a per output limb of a sum: its terms' products and adds (2 a term),
+# two floor passes (10), the carry map and its share of the warp scan (8),
+# the carry fix-up, negation select and sign (6), the shifted output (4);
+# K6b: two such sums at Lh and, a limb of L, the identity sums and the
+# compare (4). K6a's widths: compose2's (Lh and the NUCOMP cofactor
+# products, L, Lm) and the smallest
+OPS_K6A, OPS_K6A_TERM, OPS_K6B_L = 28, 2, 4
+K6A_W = (8, 72, 144, 264)
+# compose2's sections, by the comment that opens each in
+# forms2.CG.compose2_unreduced (the prologue runs from its start)
+SECTION_MARKS = (("first-gcd selects", "# first gcd"),
+                 ("second-gcd selects", "# second gcd"),
+                 ("xi / u / mu_red", "# xi = "),
+                 ("a3 / b3 / c3 epilogue", "# a3 = "))
 # KT's width at sec=128, k=128 (L), and K5m's launch shapes timed beside
 # the launcher's choice: warps a row
 KT_L = 144
@@ -956,11 +985,167 @@ def check_limb_kernels(torch, cgp, lb, rng):
     return out
 
 
+# --------------------------------------- K6a and K6b: compose2's glue
+
+
+def _sgn(v: int) -> int:
+    return (v > 0) - (v < 0)
+
+
+def k6a_cases(torch, lb, own, W, B):
+    """K6a's sums at width W on B lanes, as (label, terms, values of the
+    first 256 lanes): two terms, the edge rows first (a carry across every
+    thread, a sum of exactly 0, zero terms, a negative result, a borrow
+    through every limb, all-0xFFFF limbs, full rows: 9 limbs a thread at
+    264); three terms with multipliers 1, -1 and 2, one of W / 2 limbs and
+    one of 1; one term of redundant limbs in +-2^20 with the top limb that
+    carries (2^16 over a borrow from below, and its negative)."""
+    n = min(B, 256)
+    base, top = 1 << (16 * W), 1 << (16 * (W - 1))
+    edge = [(top - 1, 1, 1, 1), (top - 1, 1, top - 1, -1), (0, 0, 0, 1),
+            (1, 1, 4 * top, -1), (top, 1, 1, -1), (base - 1, 1, 0, 0),
+            (base - 2, -1, 1, -1), (base // 3, 1, base // 3, 1), (5, -1, 0, 1)]
+    rows = edge + [(own.getrandbits(16 * W - 2), own.choice((-1, 0, 1)),
+                    own.getrandbits(16 * W - 2), own.choice((-1, 0, 1)))
+                   for _ in range(B - len(edge))]
+
+    def term(vals, signs, L, k):
+        mag = torch.from_numpy(lb.ints_to_limbs(vals, L)).cuda()
+        return (mag, torch.tensor(signs, dtype=torch.int32, device="cuda"), k)
+
+    two = [term([r[0] for r in rows], [r[1] for r in rows], W, 1),
+           term([r[2] for r in rows], [r[3] for r in rows], W, 1)]
+    cases = [("two terms", two, [r[0] * r[1] + r[2] * r[3] for r in rows[:n]])]
+    spec = [(W, 1), (max(1, W // 2), -1), (1, 2)]
+    vals = [[own.getrandbits(16 * L - 3) for _ in range(B)] for L, _ in spec]
+    signs = [[own.choice((-1, 0, 1)) for _ in range(B)] for _ in spec]
+    three = [term(v, sg, L, k) for v, sg, (L, k) in zip(vals, signs, spec)]
+    cases.append(("three terms", three, [sum(k * sg[i] * v[i] for v, sg, (_, k) in
+                                             zip(vals, signs, spec)) for i in range(n)]))
+    red = [[own.randrange(-(1 << 20), 1 << 20) for _ in range(W - 1)]
+           + [own.randrange(-8, 8)] for _ in range(B - 2)]
+    carry = [-1] + [0] * (W - 2) + [0x10000]
+    red = [carry, [-v for v in carry]] + red
+    x = torch.tensor(red, dtype=torch.int32, device="cuda")
+    cases.append(("one redundant term", [(x, None, 1)],
+                  [sum(v << (16 * i) for i, v in enumerate(r)) for r in red[:n]]))
+    return cases
+
+
+def k6a_bound(B, W, rows, W_shr=None):
+    """K6a's bound: each term read once (a one-row term once), its signs,
+    the outputs written once; OPS_K6A an output limb of each sum plus
+    OPS_K6A_TERM a term limb."""
+    nbytes = ops = 0.0
+    for ts in rows:
+        for mag, sign, _ in ts:
+            L = min(mag.shape[-1], W)
+            nbytes += 4.0 * mag.shape[0] * L + (4.0 * B if sign is not None else 0.0)
+            ops += OPS_K6A_TERM * B * L
+        nbytes += 4.0 * B * (1 + W + (W_shr or 0))
+        ops += OPS_K6A * B * W
+    return bound(ops, nbytes)
+
+
+def k6b_bound(B, L, Lh):
+    """K6b's bound: F1 and F2 read once, the six form rows, four signs, two
+    Lh rows and two masks written once; two K6a sums at Lh and the a rows'
+    sums and compare."""
+    nbytes = 4.0 * B * 2 * (3 * L + 1) + 4.0 * B * (6 * L + 4 + 2 * Lh) + 2.0 * B
+    return bound(B * (2 * OPS_K6A * Lh + OPS_K6B_L * L), nbytes)
+
+
+def check_k6a(torch, cgp, lb, own, B):
+    """K6a at B lanes and widths K6A_W on k6a_cases' sums, with the shifted
+    output (>> 1 at W) and two sums in one launch: bit-exact against its
+    plain version on every lane and against Python integers on the first
+    256. Returns {W: numbers} of the two-term sums (no shift)."""
+    out = {}
+    for W in K6A_W:
+        cases = k6a_cases(torch, lb, own, W, B)
+        for label, terms, vals in cases:
+            got = cgp.canon_sm_cuda(terms, W, shr=1, W_shr=W)
+            err = max_abs_diff(torch, got, cgp.canon_sm_plain(terms, W, shr=1, W_shr=W))
+            if err:
+                fail(f"K6a W={W} B={B} ({label}) differs from its plain version (max {err})")
+            n = len(vals)
+            if got[0][:n].tolist() != [_sgn(v) for v in vals] \
+                    or lb.limbs_to_ints(got[1][:n].cpu()) != [abs(v) for v in vals] \
+                    or lb.limbs_to_ints(got[2][:n].cpu()) != [abs(v) >> 1 for v in vals]:
+                fail(f"K6a W={W} B={B} ({label}) differs from Python integers")
+        (_, t2, _), (_, t3, _), _ = cases
+        pair = cgp.canon_sm_cuda(t2, W, terms2=t3)
+        if max_abs_diff(torch, [*pair[0], *pair[1]],
+                        [*cgp.canon_sm_cuda(t2, W), *cgp.canon_sm_cuda(t3, W)]):
+            fail(f"K6a W={W} B={B}: two sums in one launch differ from one at a time")
+        ms = timed(torch, lambda: cgp.canon_sm_cuda(t2, W), TIMING_REPS)
+        plain_ms = timed(torch, lambda: cgp.canon_sm_plain(t2, W), 1, warm=False)
+        bms, by = k6a_bound(B, W, [t2])
+        log(f"K6a canon_sm W={W} B={B}: {', '.join(c[0] for c in cases)} (edge rows "
+            f"first), >> 1 and two sums a launch: bit-exact vs plain and Python "
+            f"integers; two terms: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+            f"{bms:.5f} ms ({by}, {bms / ms:.1%} of it)")
+        out[W] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, err=0)
+    return out
+
+
+def k6b_operands(cg, gmp, hsm, port, own, B):
+    """B compose2 operand pairs of random powers of h with, every eighth
+    lane of the first 96, an identity on the left, on the right and on
+    both, a self-compose, an inverse pair and powers of f on either side
+    (even a: F2 rotated)."""
+    from cofhe_tpu_torch.core.qfi import identity_form, neg, reduce_form
+
+    base = gmp.nupow_batch([hsm.h] * 16, [own.getrandbits(1100) for _ in range(16)])
+    f1 = [base[own.randrange(16)] for _ in range(B)]
+    f2 = [base[own.randrange(16)] for _ in range(B)]
+    ident = identity_form(hsm.Delta)
+    for i in range(0, min(B, 96), 8):
+        f1[i] = ident
+        f2[i + 1] = ident
+        f1[i + 2] = f2[i + 2] = ident
+        f1[i + 3] = f2[i + 3]
+        f1[i + 4] = reduce_form(neg(f2[i + 4]))
+        f1[i + 5] = hsm.power_of_f(own.getrandbits(K))
+        f2[i + 6] = hsm.power_of_f(own.getrandbits(K))
+    return f1, f2
+
+
+def check_k6b(torch, cgp, cg, gmp, hsm, port, own, B):
+    """K6b on k6b_operands at B lanes: bit-exact against its plain version
+    (forms2.compose2_prologue_plain), with identity, swapped and rotated
+    lanes live. Returns its numbers."""
+    f1, f2 = k6b_operands(cg, gmp, hsm, port, own, B)
+    b1, b2 = (port.bform_from_forms(f, cg.L, "cuda") for f in (f1, f2))
+    args = (b1, b2, cg.h, cg.h2, cg.Lh)
+    got = cgp.compose_prologue_cuda(*args)
+    err = max_abs_diff(torch, got, cgp.compose_prologue_plain(*args))
+    if err:
+        fail(f"K6b L={cg.L} B={B} differs from its plain version (max {err})")
+    if [got[12].tolist(), got[13].tolist()] != [[f.a == 1 for f in fs] for fs in (f1, f2)]:
+        fail(f"K6b B={B}: the identity masks are wrong")
+    live = [(x.a, y.a) for x, y in zip(f1, f2) if x.a != 1 and y.a != 1]
+    ids = B - len(live)
+    swapped = sum(x > y for x, y in live)
+    rotated = sum(max(x, y) % 2 == 0 for x, y in live)
+    if not (ids and swapped and rotated):
+        fail(f"K6b B={B}: identity ({ids}), swapped ({swapped}) or rotated ({rotated}) "
+             f"lanes missing")
+    ms = timed(torch, lambda: cgp.compose_prologue_cuda(*args), TIMING_REPS)
+    plain_ms = timed(torch, lambda: cgp.compose_prologue_plain(*args), 1, warm=False)
+    bms, by = k6b_bound(B, cg.L, cg.Lh)
+    log(f"K6b compose_prologue L={cg.L} Lh={cg.Lh} B={B}: bit-exact vs plain ({ids} "
+        f"identity lanes, {swapped} swapped, {rotated} rotated); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bms:.5f} ms ({by}, "
+        f"{bms / ms:.1%} of it)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, err=0)
+
+
 # ------------------------------------------- main-path operands and launches
 
 
 class Recorder:
-    """Wraps the kernel wrappers of cuda_group (all eight, or the chosen
+    """Wraps the kernel wrappers of cuda_group (all ten, or the chosen
     ones): keeps the operands of the first eager call at each (kernel,
     width, extra, batch) key in the chosen (phase, batch) pairs. A graph
     replay calls no wrapper and a capture runs no kernel, so operands come
@@ -971,7 +1156,8 @@ class Recorder:
     WANT = {("decrypt", 128), ("matmul", 256), ("matmul", 16384)}
     WRAPPERS = ("xgcd_coeff_g_cuda", "mod_topdown_cuda", "reduce2_grouped_loop_cuda",
                 "reduce_exact_cuda", "mag_mul_cuda", "mag_divexact_odd_cuda",
-                "redc_mod_cuda", "lehmer_euclid_cuda")
+                "redc_mod_cuda", "lehmer_euclid_cuda", "canon_sm_cuda",
+                "compose_prologue_cuda")
 
     def __init__(self, torch, cgp, want=None, wrappers=None):
         self.torch, self.cgp = torch, cgp
@@ -980,11 +1166,22 @@ class Recorder:
         self.ops: dict = {}
         self.orig = {n: getattr(cgp, n) for n in (wrappers or self.WRAPPERS)}
 
+    def _clone(self, a):
+        """a copy of an argument: tensors cloned, also inside tuples (a
+        BForm) and lists (a K6a sum's terms)."""
+        if isinstance(a, self.torch.Tensor):
+            return a.clone()
+        if isinstance(a, list):
+            return [self._clone(x) for x in a]
+        if isinstance(a, tuple):
+            vals = [self._clone(x) for x in a]
+            return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
+        return a
+
     def _note(self, key, args):
         if (self.phase, key[3]) in self.want and key not in self.ops \
                 and not self.torch.cuda.is_current_stream_capturing():
-            self.ops[key] = tuple(a.clone() if isinstance(a, self.torch.Tensor)
-                                  else a for a in args)
+            self.ops[key] = self._clone(tuple(args))
 
     def __enter__(self):
         rec, orig = self, self.orig
@@ -1031,10 +1228,21 @@ class Recorder:
                                               sim_steps=sim_steps, active=active,
                                               iters=iters)
 
+        def canon(terms, W, shr=0, W_shr=None, terms2=None):
+            rec._note(rec.cgp.canon_sm_key(terms, W, shr, W_shr, terms2),
+                      (terms, W, shr, W_shr, terms2))
+            return orig["canon_sm_cuda"](terms, W, shr=shr, W_shr=W_shr, terms2=terms2)
+
+        def prologue(F1, F2, h, h2, Lh):
+            rec._note(("compose_prologue", F1.a.shape[1], Lh, F1.a.shape[0]),
+                      (F1, F2, h, h2, Lh))
+            return orig["compose_prologue_cuda"](F1, F2, h, h2, Lh)
+
         new = {"xgcd_coeff_g_cuda": xgcd, "mod_topdown_cuda": mod,
                "reduce2_grouped_loop_cuda": red, "reduce_exact_cuda": exact,
                "mag_mul_cuda": mul, "mag_divexact_odd_cuda": quo, "redc_mod_cuda": redc,
-               "lehmer_euclid_cuda": walk}
+               "lehmer_euclid_cuda": walk, "canon_sm_cuda": canon,
+               "compose_prologue_cuda": prologue}
         for n in self.orig:
             setattr(self.cgp, n, new[n])
         return self
@@ -1061,8 +1269,9 @@ def reset_counts(cgp) -> None:
 
 
 def path_kernels(cgp, nucomp: bool = False) -> list:
-    """The kernels a path must launch: all eight where it takes the NUCOMP
-    tail (the legacy path), else all but K7, the tail's Lehmer walk."""
+    """The kernels a path must launch: all ten where it takes the NUCOMP
+    tail (the legacy path), else all but K7, the tail's Lehmer walk (K6a
+    and K6b run in every compose2)."""
     return [n for n in cgp.KERNELS if nucomp or n != "lehmer_euclid"]
 
 
@@ -1464,7 +1673,7 @@ def run_legacy(torch, cgp, port, main, rng):
     timer = PhaseTimer("cuda")
     phases = timer.phases
     rec = Recorder(torch, cgp, want={("legacy", LEGACY_B)},
-                   wrappers=Recorder.WRAPPERS[:4] + ("lehmer_euclid_cuda",))
+                   wrappers=Recorder.WRAPPERS[:4] + ("lehmer_euclid_cuda", "canon_sm_cuda"))
     rec.phase = "legacy"
     reset_counts(cgp)
     with rec, torch.inference_mode():
@@ -1543,7 +1752,8 @@ def run_legacy(torch, cgp, port, main, rng):
     for c, label in ((ecg, "default tail, eager"), (cg, "default tail, graph replay"),
                      (necg, "NUCOMP tail, eager"), (ncg, "NUCOMP tail, graph replay")):
         groups = profile_compose(torch, c, gmp, hsm, port.bform_from_forms,
-                                 random.Random(seed), label, groups=groups)
+                                 random.Random(seed), label, groups=groups,
+                                 sections=c in (ecg, necg))
     return launches, by_key, rec, ncg
 
 
@@ -1615,13 +1825,14 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
     """One kernel at one recorded main-path shape and batch: checks, trip
     counts, time and bound. Returns its JSON entry."""
     name, W, extra, B = key
-    dev = args[0].device
-    iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    iters = torch.zeros(B, dtype=torch.int32, device="cuda")
     row = {"name": row_name(key), "launches": n_launch, "library_ms": None}
     old_ops = trips = None
     if name in ("mag_mul", "divexact_odd", "redc_mod"):
         ms, plain_ms, (bms, by, row["bound_cuda_cores_ms"]), trips = limb_row(
             torch, cgp, lb, row, key, args)
+    elif name in ("canon_sm", "compose_prologue"):
+        ms, plain_ms, (bms, by), trips = k6_row(torch, cgp, lb, row, key, args)
     elif name == "xgcd_coeff_g":
         f, g, m, nbits = args
         got = cgp.xgcd_coeff_g_cuda(f, g, m, nbits, iters=iters)
@@ -1732,6 +1943,10 @@ def row_name(key) -> str:
         shape = f"W={W},{'nbits' if name == 'xgcd_coeff_g' else 'Lm'}={extra}"
     elif name == "lehmer_euclid":
         shape = f"L={W},max_groups={extra}"
+    elif name == "canon_sm":
+        shape = f"W={W},terms={extra}"
+    elif name == "compose_prologue":
+        shape = f"L={W},Lh={extra}"
     else:
         shape = f"W={W}"
     return f"{name}[{shape}]@B={B}"
@@ -1779,6 +1994,49 @@ def limb_row(torch, cgp, lb, row, key, args):
     return timed(torch, fn, TIMING_REPS), plain_ms, bnd, trips
 
 
+def _flat(x) -> list:
+    """The tensors of a kernel's output (nested tuples), in order."""
+    return [t for y in x for t in _flat(y)] if isinstance(x, tuple) else [x]
+
+
+def k6_row(torch, cgp, lb, row, key, args):
+    """K6a or K6b at one recorded main-path call: against its plain
+    version (K6a also against Python integers on the first 256 lanes);
+    (ms, plain ms, bound, trips)."""
+    name, W, _, B = key
+    if name == "canon_sm":
+        terms, Wc, shr, W_shr, terms2 = args
+        fn = lambda: cgp.canon_sm_cuda(terms, Wc, shr, W_shr, terms2)  # noqa: E731
+        plain = lambda: cgp.canon_sm_plain(terms, Wc, shr, W_shr, terms2)  # noqa: E731
+        rows = [terms] if terms2 is None else [terms, terms2]
+        got = fn()
+        n = min(B, 256)
+        for ts, out in zip(rows, [got] if terms2 is None else got):
+            vals = [0] * n
+            for mag, sign, k in ts:
+                # limbs may be redundant (the Lehmer cofactors): signed sums
+                m = [sum(v << (16 * i) for i, v in enumerate(r))
+                     for r in lb.resize(mag, Wc)[:n].tolist()]
+                m = m * n if len(m) == 1 else m
+                sg = [1] * n if sign is None else sign[:n].tolist()
+                vals = [v + k * s_ * x for v, s_, x in zip(vals, sg, m)]
+            if out[0][:n].tolist() != [_sgn(v) for v in vals] \
+                    or lb.limbs_to_ints(out[1][:n].cpu()) != [abs(v) for v in vals]:
+                fail(f"{row['name']}: differs from Python integers on the recorded operands")
+        bnd = k6a_bound(B, Wc, rows, W_shr)
+        trips = f"no loop: {len(rows)} sum(s) of {len(terms)} terms"
+    else:
+        F1, F2, h, h2, Lh = args
+        fn = lambda: cgp.compose_prologue_cuda(F1, F2, h, h2, Lh)  # noqa: E731
+        plain = lambda: cgp.compose_prologue_plain(F1, F2, h, h2, Lh)  # noqa: E731
+        got = fn()
+        bnd = k6b_bound(B, W, Lh)
+        trips = f"no loop: {int((got[12] | got[13]).sum())} identity lanes"
+    row["max_abs_err"] = max_abs_diff(torch, _flat(got), _flat(plain()))
+    plain_ms = timed(torch, plain, 1, warm=False)
+    return timed(torch, fn, TIMING_REPS), plain_ms, bnd, trips
+
+
 def decrypt_k1_lanes(lb, rec):
     """(W, nbits, [(f, g), ...]) of the recorded decrypt K1 calls' lanes
     with gcd(f, g) > 1 (nudupl steps: a1 = a2)."""
@@ -1820,16 +2078,99 @@ class LehmerCount:
         return False
 
 
+def section_lines(f2m):
+    """(first line, [(line, section) where each section after the prologue
+    starts]) of forms2.CG.compose2_unreduced, by SECTION_MARKS."""
+    import inspect
+
+    src, start = inspect.getsourcelines(f2m.CG.compose2_unreduced)
+    cuts = []
+    for name, mark in SECTION_MARKS:
+        i = next(i for i, ln in enumerate(src) if ln.strip().startswith(mark))
+        cuts.append((start + i, name))
+    return start, cuts
+
+
+def compose_sections(torch, cg, b1, b2, kernel_names) -> dict:
+    """Device ms of one eager compose2's torch ops (not the kernels named)
+    by section of forms2.CG.compose2_unreduced (SECTION_MARKS) and of
+    compose2_eager (its identity selects, the reduction's operands or the
+    NUCOMP tail). A line tracer opens a profiler range as each section
+    starts, and each device kernel counts for the range around the torch
+    op that launched it."""
+    import inspect
+
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    f2m = sys.modules[type(cg).__module__]
+    _, cuts = section_lines(f2m)
+    unreduced, eager = f2m.CG.compose2_unreduced.__code__, f2m.CG.compose2_eager.__code__
+    src, start = inspect.getsourcelines(f2m.CG.compose2_eager)
+    eager_sec = {start + i: ("identity selects" if "bform_select" in ln else
+                             "NUCOMP tail" if "_nucomp_tail" in ln else "reduction operands")
+                 for i, ln in enumerate(src)}
+    state = {"range": None, "sec": None}
+
+    def enter(sec):
+        if sec != state["sec"]:
+            if state["range"] is not None:
+                state["range"].__exit__(None, None, None)
+            state["range"], state["sec"] = record_function(f"compose2 section: {sec}"), sec
+            state["range"].__enter__()
+
+    def tracer(frame, event, arg):
+        if frame.f_code is unreduced:
+            if event == "line":
+                enter(next((name for line, name in reversed(cuts) if frame.f_lineno >= line),
+                           "prologue"))
+            return tracer
+        if frame.f_code is eager:
+            if event == "line" and frame.f_lineno in eager_sec:
+                enter(eager_sec[frame.f_lineno])
+            return tracer
+        return None
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sys.settrace(tracer)
+        try:
+            cg.compose2_eager(b1, b2)
+        finally:
+            sys.settrace(None)
+            if state["range"] is not None:
+                state["range"].__exit__(None, None, None)
+        torch.cuda.synchronize()
+    split: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        us = sum(k.duration for k in e.kernels
+                 if not any(n in k.name for n in kernel_names))
+        if not us:
+            continue
+        sec, up = "unattributed", e
+        while up is not None:
+            if up.name.startswith("compose2 section: "):
+                sec = up.name[len("compose2 section: "):]
+                break
+            up = up.cpu_parent
+        split[sec] = split.get(sec, 0.0) + us / 1e3
+    return split
+
+
 def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128,
-                    groups=None):
+                    groups=None, sections=False):
     """Host wall time and device time of one compose2 at the decrypt
     ladder's batch (the device's busy share of a step), its span on the
     card's clock between CUDA events recorded before and after it, the
-    device time split into the eight kernels and everything else, and with
+    device time split into the ten kernels and everything else, and with
     the NUCOMP tail the Lehmer walk's groups a lane (a replay calls no
     dispatcher: there `groups`, an eager call's on the same forms). A graph
-    replay is profiled as it runs: copies in, one replay, clones out.
-    Returns the groups a lane, if counted."""
+    replay is profiled as it runs: copies in, one replay, clones out. With
+    `sections`, "other" split by section of compose2 (compose_sections,
+    one more eager call: the same torch ops a replay runs). Returns the
+    groups a lane, if counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1856,7 +2197,8 @@ def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128,
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     split = dict.fromkeys(("xgcd_coeff_g", "mod_topdown", "reduce2_grouped",
                            "reduce_exact", "mag_mul", "divexact_odd", "redc_mod",
-                           "lehmer_euclid", "other"), 0.0)
+                           "lehmer_euclid", "canon_sm", "compose_prologue",
+                           "other"), 0.0)
     for e in device:
         k = "lehmer_euclid" if any(n in e.name for n in K7_DEVICE) else next(
             (n for n in split if n + "_kernel" in e.name), "other")
@@ -1873,6 +2215,15 @@ def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128,
         f"{span_ms:.2f} ms, device {dev_ms:.2f} ms ({busy}), {len(device)} device "
         f"kernels and copies{note}; device ms by kernel "
         + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    if sections:
+        with torch.inference_mode():
+            sec = compose_sections(torch, cg, b1, b2, [n + "_kernel" for n in split
+                                                       if n != "other"] + list(K7_DEVICE))
+        total = sum(sec.values())
+        log(f"compose2 B={B} ({label}): other device ms by section of compose2 "
+            + (json.dumps({k: round(v, 4) for k, v in sorted(sec.items(),
+                                                              key=lambda x: -x[1])})
+               + f", {total:.3f} ms in all" if total else "not measured (no stacks)"))
     return groups
 
 
@@ -1939,8 +2290,8 @@ def report_build(cgp) -> None:
 
 
 def compose2_npt() -> dict:
-    """{shape: (kernel, NPT)} of the K5m, K5d, K4, KT and K7 calls compose2
-    makes: K5m (La, Lb, L_out) and K5d (Lx, Ly, L_out) at ceil(L_out / 32),
+    """{shape: (kernel, NPT)} of the K5m, K5d, K4, KT, K7, K6a and K6b
+    calls compose2 makes: K5m (La, Lb, L_out) and K5d (Lx, Ly, L_out) at ceil(L_out / 32),
     K4 (Lx, Ld) at ceil(N / 32), N = max(Lx, steps + Ld) + 1, KT and K7
     (the NUCOMP tail's) at ceil(L / 32)."""
     out = {sh: ("mag_mul", -(-sh[2] // 32)) for sh in K5M_SHAPES}
@@ -1951,14 +2302,19 @@ def compose2_npt() -> dict:
     # K7's two kernels at the NUCOMP tail's width L
     out[("NUCOMP walk", KT_L)] = ("lehmer_euclid_walk", -(-KT_L // 32))
     out[("NUCOMP finish", KT_L)] = ("lehmer_euclid_finish", -(-KT_L // 32))
+    # K6a's sums at L (xi's numerator, 2 m2, b3) and Lm (csum); K6b at L
+    out[("K6a at L", KT_L)] = ("canon_sm", -(-KT_L // 32))
+    out[("K6a csum", K5M_SHAPES[-1][2])] = ("canon_sm", -(-K5M_SHAPES[-1][2] // 32))
+    out[("K6b", KT_L)] = ("compose_prologue", -(-KT_L // 32))
     return out
 
 
 def kernel_instance(mangled: str):
-    """(kernel, template arguments) of a K5m, K5d, K4, KT or K7 instance's
-    mangled name, else None."""
+    """(kernel, template arguments) of a K5m, K5d, K4, KT, K7, K6a or K6b
+    instance's mangled name, else None."""
     m = re.search(r"(mag_mul|divexact_odd|redc_mod|reduce_exact|lehmer_euclid_walk|"
-                  r"lehmer_euclid_finish)_kernelI((?:Li\d+E)+)E", mangled)
+                  r"lehmer_euclid_finish|canon_sm|compose_prologue)_kernelI((?:Li\d+E)+)E",
+                  mangled)
     if not m:
         return None
     return m.group(1), tuple(int(v) for v in re.findall(r"Li(\d+)E", m.group(2)))
@@ -1966,7 +2322,8 @@ def kernel_instance(mangled: str):
 
 def ptxas_instances(text: str) -> dict:
     """{(kernel, template arguments): {regs, stack, stores, loads}} of K5m's,
-    K5d's, K4's, KT's and K7's instances in nvcc's -Xptxas=-v report."""
+    K5d's, K4's, KT's, K7's, K6a's and K6b's instances in nvcc's -Xptxas=-v
+    report."""
     out, cur = {}, None
     for ln in text.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties for )(\S+?)'?$",
@@ -2006,18 +2363,23 @@ def sass_counts(body: str) -> dict:
     return {op: len(re.findall(rf"\b{op}U?\.", body)) for op in SASS_OPS}
 
 
-def check_k7_spills(cgp) -> None:
-    """Every K7 instance in the build's ptxas report must spill nothing."""
-    k7 = {k: p for k, p in ptxas_instances(cgp.BUILD_INFO["log"]).items()
-          if k[0].startswith("lehmer_euclid")}
-    if not k7:
-        log("ptxas: no K7 instance in the report (libraries already built)")
+def check_spills(cgp) -> None:
+    """Every K7, K6a and K6b instance in the build's ptxas report must
+    spill nothing."""
+    inst = {k: p for k, p in ptxas_instances(cgp.BUILD_INFO["log"]).items()
+            if k[0].startswith("lehmer_euclid") or k[0] in ("canon_sm", "compose_prologue")}
+    if not inst:
+        log("ptxas: no K7, K6a or K6b instance in the report (libraries already built)")
         return
-    bad = [f"{k[0]}<{k[1][0]}>" for k, p in sorted(k7.items())
+    bad = [f"{k[0]}<{', '.join(map(str, k[1]))}>" for k, p in sorted(inst.items())
            if p.get("stores") or p.get("loads")]
     if bad:
-        fail(f"K7 instances spill: {bad}")
-    log(f"ptxas: none of the {len(k7)} K7 instances spills")
+        fail(f"K7 / K6a / K6b instances spill: {bad}")
+    for (kname, args), p in sorted(inst.items()):
+        if kname in ("canon_sm", "compose_prologue"):
+            log(f"ptxas {kname}_kernel<{', '.join(map(str, args))}>: {p.get('regs')} "
+                f"registers, no spill")
+    log(f"ptxas: none of the {len(inst)} K7, K6a and K6b instances spills")
 
 
 def check_sass(cgp) -> None:
@@ -2073,7 +2435,7 @@ def main() -> int:
     cgp.build()
     k7_clock.finish(fail)
     report_build(cgp)
-    check_k7_spills(cgp)
+    check_spills(cgp)
     check_sass(cgp)
 
     rng = random.Random(SEED)
@@ -2100,6 +2462,9 @@ def main() -> int:
     ncg = f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True)
     k7 = {B: check_k7(torch, cgp, ncg, lb, gmp, hsm, bform_from_forms, rng, B, k7_clock)
           for B in (KERNEL_B, RAGGED_B, SMALL_B)}
+    own = random.Random(SEED + 13)  # K6a's and K6b's own: rng reaches what follows as before
+    k6a = {B: check_k6a(torch, cgp, lb, own, B) for B in TABLE_B}
+    k6b = {B: check_k6b(torch, cgp, cg, gmp, hsm, port, own, B) for B in TABLE_B}
     log(f"kernel checks: {time.perf_counter() - t:.1f} s")
 
     from cofhe_tpu_torch.ops import graphs
@@ -2186,7 +2551,10 @@ def main() -> int:
                             "cofhe_tpu/ops/limb.py:566"),
            "redc_mod": ("cofhe_tpu_torch/csrc/redc_mod.cu", "cofhe_tpu/ops/rl.py:486"),
            "lehmer_euclid": ("cofhe_tpu_torch/csrc/lehmer_euclid.cu",
-                             "cofhe_tpu/ops/rl.py:347")}
+                             "cofhe_tpu/ops/rl.py:347"),
+           "canon_sm": ("cofhe_tpu_torch/csrc/canon_sm.cu", "cofhe_tpu/ops/limb.py:113"),
+           "compose_prologue": ("cofhe_tpu_torch/csrc/compose_prologue.cu",
+                                "cofhe_tpu/ops/forms2.py:478")}
     kernels = [
         entry("xgcd_coeff_g", *src["xgcd_coeff_g"], k1[(88, False, KERNEL_B)]),
         entry("mod_topdown", *src["mod_topdown"], k2[KERNEL_B]),
@@ -2200,6 +2568,10 @@ def main() -> int:
         entry("redc_mod", *src["redc_mod"], limb_k["redc_mod"][((72, 72), KERNEL_B)]),
         # the walk operands of 16384 compose2 pairs (the NUCOMP tail's)
         entry("lehmer_euclid", *src["lehmer_euclid"], k7[KERNEL_B]),
+        # two-term sums at L on 16384 lanes; the prologue on 16384 compose2
+        # pairs (every recorded call has its own table row below)
+        entry("canon_sm", *src["canon_sm"], k6a[KERNEL_B][KT_L]),
+        entry("compose_prologue", *src["compose_prologue"], k6b[KERNEL_B]),
     ]
     for r in table:
         base_name = r["name"].split("[")[0].split("@")[0]

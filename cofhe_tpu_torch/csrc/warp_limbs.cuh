@@ -263,6 +263,21 @@ __device__ __forceinline__ int canonicalize(int (&x)[NPT], int lane, int W) {
   return sg[0];
 }
 
+// limb.mag_shr_bits(x, s) of a canonical row, 0 <= s < 16: limb i becomes
+// (x_i >> s) | ((x_{i+1} << (16 - s)) & 0xFFFF), the limb above a thread's
+// last one from the next thread (0 past the row: padding limbs are 0).
+template <int NPT>
+__device__ __forceinline__ void shr_bits(const int (&x)[NPT], int (&out)[NPT],
+                                         int s, int lane) {
+  int up = __shfl_down_sync(WL_FULL, x[0], 1);
+  if (lane == 31) up = 0;
+#pragma unroll
+  for (int j = 0; j < NPT; j++) {
+    const int nxt = j + 1 < NPT ? x[j + 1] : up;
+    out[j] = (x[j] >> s) | (int)(((uint32_t)nxt << (16 - s)) & 0xFFFFu);
+  }
+}
+
 // limb.mag_cmp of canonical magnitudes, from two independent ballots (where
 // the highest differing limb is, and whether it is greater there).
 template <int NPT>

@@ -1,7 +1,7 @@
 """Hopper kernels for the class-group hot loops (counterpart of
 cofhe_tpu/ops/pallas_group.py).
 
-Eight kernels, CUDA C++ for sm_90a under cofhe_tpu_torch/csrc/, built with
+Ten kernels, CUDA C++ for sm_90a under cofhe_tpu_torch/csrc/, built with
 nvcc into plain-C shared libraries at first use and bound with ctypes. Each
 gives one warp to one batch row (K5m up to four at small batches); the
 source notes say more.
@@ -57,6 +57,17 @@ source notes say more.
   the stopped lanes the batch loop's carry passes; its plain version is
   rl.lehmer_euclid, whose limbs, `par` and working groups it matches.
 
+* K6a `canon_sm` (csrc/canon_sm.cu) replaces limb.py::canonicalize_fast
+  where compose2 (and its NUCOMP tail) applies it to a short signed sum
+  (sm_add / sm_sub, 2 m2, sq + |Delta|/4): sum(k * sign * mag) of up to
+  three terms to (sign, canonical mag), with mag >> shr cut to W_shr
+  limbs on request, one or two sums a launch; its plain version is
+  `canon_sm_plain` (the sum in torch ops, then limb.canonicalize_fast).
+* K6b `compose_prologue` (csrc/compose_prologue.cu) replaces compose2's
+  prologue up to s and dd (the identity masks and substitution, the
+  swap, rotate_to_odd, s and dd) in one launch; its plain version is
+  forms2.compose2_prologue_plain.
+
 The main path runs 97% of K2's and K3's launches at 128-256 lanes, where a
 kernel's time is the latency of one warp's loop rather than the card's
 rate; the kernels the main path runs have four warps a block (K7, off
@@ -64,15 +75,17 @@ the main path, one). The earlier plain versions,
 rl.mod_topdown and forms2.grouped_rho_loop, stay as references.
 
 The dispatchers `xgcd_coeff_g`, `mod_topdown`, `reduce2_grouped_loop`,
-`reduce_exact`, `mag_mul`, `mag_divexact_odd`, `redc_mod` and
-`lehmer_euclid` are what ops/forms2.py (and limb.mag_mul /
-mag_divexact_odd) call: a CPU tensor goes to the plain version
-(`plain_route`), a CUDA tensor to the kernel, and anything else raises;
+`reduce_exact`, `mag_mul`, `mag_divexact_odd`, `redc_mod`,
+`lehmer_euclid`, `canon_sm` and `compose_prologue` are what
+ops/forms2.py (and limb.mag_mul / mag_divexact_odd) call: a CPU tensor
+goes to the plain version (`plain_route`), a CUDA tensor to the kernel,
+and anything else raises;
 there is no fallback from the kernel to the plain version. Each `*_cuda`
 wrapper adds one to `LAUNCHES[name]` and to `LAUNCHES_BY_KEY[(name,
 width, extra, batch)]` (extra: nbits or Lm, the operand widths "LaxLb" of
 a product or "LxxLy" of a quotient, d's width for a REDC, the group cap
-of a Lehmer walk, else 0) where it launches its kernel and nowhere else.
+of a Lehmer walk, the term widths of a K6a sum (`canon_sm_key`), Lh for
+the prologue, else 0) where it launches its kernel and nowhere else.
 While a thread captures a CUDA graph (`capturing_launches`, ops/graphs.py) its
 launches are recorded into the graph's key list instead, and each replay
 of the graph counts them (`count_launches`): the kernels run once a replay.
@@ -113,6 +126,9 @@ _ARGTYPES = {
     "divexact_odd": [_P] * 3 + [_I] * 6 + [_P],
     "redc_mod": [_P] * 4 + [_I] * 6 + [_P],
     "lehmer_euclid": [_P] * 13 + [_I] * 4 + [_P],
+    # host arrays of device pointers and of ints, then ints
+    "canon_sm": [_P, _P] + [_I] * 5 + [_P],
+    "compose_prologue": [_P, _P] + [_I] * 3 + [_P],
 }
 KERNELS = tuple(_ARGTYPES)
 
@@ -279,7 +295,7 @@ def _launch(key: tuple, ref: torch.Tensor, *args) -> None:
     with torch.cuda.device(ref.device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc} at {key}")
     keys = getattr(_CAPTURE, "keys", None)
     if keys is not None:
         keys.append(key)
@@ -591,3 +607,163 @@ def lehmer_euclid(r0_mag, r1_mag, bits_stop, max_groups: int,
                                    sim_steps=sim_steps, active=active, iters=iters)
     return lehmer_euclid_cuda(r0_mag, r1_mag, bits_stop, max_groups,
                               sim_steps=sim_steps, active=active, iters=iters)
+
+
+# ------------------------------------------------ K6a: signed sums, canonical
+
+
+def canon_sm_plain(terms, W: int, shr: int = 0, W_shr: int | None = None,
+                   terms2=None):
+    """limb.canonicalize_fast of sum(k * sign * resize(mag, W)) over the
+    terms (mag, sign or None for 1, k): limb.sm_add / sm_sub of two signed
+    magnitudes, and with one term the canonicalization of a redundant row.
+    Returns (sign, mag), with W_shr also resize(mag >> shr, W_shr); with
+    `terms2`, a second sum's result beside the first's."""
+    def one(ts):
+        acc = None
+        for mag, sign, k in ts:
+            t = lb.resize(mag, W)
+            if sign is not None:
+                t = sign[..., None] * t
+            if k != 1:
+                t = k * t
+            acc = t if acc is None else acc + t
+        sg, mag = lb.canonicalize_fast(acc)
+        if W_shr is None:
+            return sg, mag
+        return sg, mag, lb.resize(lb.mag_shr_bits(mag, shr), W_shr)
+
+    return one(terms) if terms2 is None else (one(terms), one(terms2))
+
+
+def _canon_row(terms, W: int, B: int, ref, keep: list):
+    """The C entry point's pointers and ints of one sum's terms."""
+    if not 1 <= len(terms) <= 3:
+        raise ValueError(f"canon_sm: 1-3 terms a sum, got {len(terms)}")
+    ptrs, ints = [], []
+    for mag, sign, k in terms:
+        m, stride = _rows("canon_sm", mag, ref)
+        if mag.dim() != 2 or m.shape[0] not in (1, B):
+            raise ValueError(f"canon_sm: (B, L) or (1, L) terms required, got "
+                             f"{tuple(mag.shape)} at batch {B}")
+        if m.shape[0] == 1:
+            stride = 0
+        sp = None
+        if sign is not None:
+            if sign.shape != (B,) or sign.dtype != torch.int32 \
+                    or sign.device != ref.device:
+                raise ValueError("canon_sm: a sign must be a (B,) int32 tensor "
+                                 "on the terms' device")
+            sign = sign.contiguous()
+            sp = sign.data_ptr()
+        keep += [m, sign]
+        ptrs += [m.data_ptr(), sp]
+        ints += [m.shape[1], int(k), stride]
+    ptrs += [None, None] * (3 - len(terms))
+    ints += [0, 0, 0] * (3 - len(terms))
+    return ptrs, ints
+
+
+def canon_sm_key(terms, W: int, shr: int = 0, W_shr: int | None = None,
+                 terms2=None) -> tuple:
+    """K6a's launch key (name, W, extra, B): extra gives each sum's term
+    widths ("72+144", two sums "a,b") and the shifted output (">>1:136")."""
+    rows = [terms] if terms2 is None else [terms, terms2]
+    extra = ",".join("+".join(str(t[0].shape[-1]) for t in ts) for ts in rows)
+    if W_shr is not None:
+        extra += f">>{shr}:{W_shr}"
+    return ("canon_sm", W, extra, max(t[0].shape[0] for ts in rows for t in ts))
+
+
+def canon_sm_cuda(terms, W: int, shr: int = 0, W_shr: int | None = None,
+                  terms2=None):
+    """K6a on the card: canon_sm_plain's outputs, one launch for one sum or
+    two (`terms2`). Terms are (mag, sign, k): mag a (B, L) or (1, L) int32
+    row (read at min(L, W) limbs, zero-extended), sign a (B,) int32 tensor
+    or None, k an int."""
+    rows = [terms] if terms2 is None else [terms, terms2]
+    key = canon_sm_key(terms, W, shr, W_shr, terms2)
+    ref, B = terms[0][0], key[3]
+    if not 1 <= W <= MAX_LIMBS or not 0 <= shr < 16 \
+            or (W_shr is not None and not 1 <= W_shr <= W):
+        raise ValueError(f"canon_sm: need 1 <= W <= {MAX_LIMBS}, 0 <= shr < 16 "
+                         f"and 1 <= W_shr <= W, got W={W}, shr={shr}, W_shr={W_shr}")
+    keep: list = []
+    ptrs, ints, outs = [], [], []
+    for ts in rows:
+        p, n = _canon_row(ts, W, B, ref, keep)
+        sg = torch.empty(B, dtype=torch.int32, device=ref.device)
+        mag = torch.empty((B, W), dtype=torch.int32, device=ref.device)
+        half = None if W_shr is None else torch.empty(
+            (B, W_shr), dtype=torch.int32, device=ref.device)
+        ptrs += p + [sg.data_ptr(), mag.data_ptr(),
+                     None if half is None else half.data_ptr()]
+        ints += n
+        outs.append((sg, mag) if half is None else (sg, mag, half))
+    _launch(key, ref, (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_longlong * len(ints))(*ints), len(rows), B, W, int(shr),
+            0 if W_shr is None else W_shr)
+    return outs[0] if terms2 is None else tuple(outs)
+
+
+def canon_sm(terms, W: int, shr: int = 0, W_shr: int | None = None, terms2=None):
+    """Dispatcher: plain version for CPU tensors, K6a for CUDA tensors."""
+    if plain_route(terms[0][0]):
+        return canon_sm_plain(terms, W, shr=shr, W_shr=W_shr, terms2=terms2)
+    return canon_sm_cuda(terms, W, shr=shr, W_shr=W_shr, terms2=terms2)
+
+
+# -------------------------------------------------- K6b: compose2's prologue
+
+
+def compose_prologue_plain(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int):
+    from .forms2 import compose2_prologue_plain  # forms2 imports this module
+
+    return compose2_prologue_plain(F1, F2, h, h2, Lh)
+
+
+def compose_prologue_cuda(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int):
+    """K6b on the card: compose_prologue_plain's (a1, b1s, b1m, c1, a2,
+    b2s, b2m, c2, ss, sm, dds, ddm, id1, id2) of canonical (B, L) forms F1,
+    F2 and the substitute forms h, h2 (one row each)."""
+    B, L = F1.a.shape[0], F1.a.shape[-1]
+    dev = F1.a.device
+    ins = []
+    for F in (F1, F2):
+        if F.a.dim() != 2 or F.a.shape != (B, L) or F.b.shape != (B, L) \
+                or F.c.shape != (B, L) or F.b_sign.shape != (B,):
+            raise ValueError("compose_prologue: F1 and F2 must be (B, L) forms of "
+                             "one shape")
+        ins += [x.contiguous() for x in F]
+    for F in (h, h2):
+        if any(x.numel() != L for x in (F.a, F.b, F.c)) or F.b_sign.numel() != 1:
+            raise ValueError("compose_prologue: h and h2 must be single forms "
+                             f"of {L} limbs")
+        ins += [x.contiguous() for x in F]
+    if not 1 <= Lh <= L <= MAX_LIMBS or B * L >= 1 << 31:
+        raise ValueError(f"compose_prologue: need 1 <= Lh <= L <= {MAX_LIMBS} and "
+                         f"B L < 2^31, got B={B}, L={L}, Lh={Lh}")
+    if any(x.device != dev or x.dtype != torch.int32 for x in ins) or dev.type != "cuda":
+        raise ValueError("compose_prologue: int32 tensors on one CUDA device required")
+
+    def rows(n):
+        return torch.empty((B, n), dtype=torch.int32, device=dev)
+
+    def signs():
+        return torch.empty(B, dtype=torch.int32, device=dev)
+
+    outs = (rows(L), signs(), rows(L), rows(L), rows(L), signs(), rows(L), rows(L),
+            signs(), rows(Lh), signs(), rows(Lh),
+            torch.empty(B, dtype=torch.bool, device=dev),
+            torch.empty(B, dtype=torch.bool, device=dev))
+    _launch(("compose_prologue", L, Lh, B), F1.a,
+            (ctypes.c_void_p * 16)(*(x.data_ptr() for x in ins)),
+            (ctypes.c_void_p * 14)(*(x.data_ptr() for x in outs)), B, L, Lh)
+    return outs
+
+
+def compose_prologue(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int):
+    """Dispatcher: plain version for CPU tensors, K6b for CUDA tensors."""
+    if plain_route(F1.a):
+        return compose_prologue_plain(F1, F2, h, h2, Lh)
+    return compose_prologue_cuda(F1, F2, h, h2, Lh)

@@ -24,11 +24,14 @@ The algebra and the widths are the JAX package's:
 
 Every `xgcd_coeff_g`, `mod_topdown`, grouped-rho loop, exact tail,
 product (`lb.mag_mul`), exact quotient (`lb.mag_divexact_odd`), REDC
-(`CG._redc_mod`) and Lehmer walk goes through the dispatchers of
+(`CG._redc_mod`), Lehmer walk, signed sum canonicalized (xi's numerator,
+2 m2, b3 with b3 / 2, csum, and the NUCOMP tail's cofactors and form
+values: `cuda_group.canon_sm`) and the prologue up to s and dd
+(`CG.compose2_prologue`) goes through the dispatchers of
 ops/cuda_group.py: on a CUDA tensor they launch the Hopper kernels (K1,
-K2, K3, KT, K5m, K5d, K4, K7), on a CPU tensor they run the plain torch
-versions. On the card no 2-adic inverse runs inside compose2: K5d and K4
-take their own 16-bit inverses.
+K2, K3, KT, K5m, K5d, K4, K7, K6a, K6b), on a CPU tensor they run the
+plain torch versions. On the card no 2-adic inverse runs inside
+compose2: K5d and K4 take their own 16-bit inverses.
 Reduced forms are unique, so the outputs equal the JAX package's and the
 pure-Python oracle's bit for bit.
 
@@ -302,6 +305,35 @@ def grouped_rho_loop_wide(a_red, b_red, c_red, dD_mant: float, dD_top: int,
     return a, b, c
 
 
+def compose2_prologue_plain(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int):
+    """compose2's prologue in torch ops (plain version of K6b, which
+    CG.compose2_prologue dispatches): the identity masks, h / h^2 on the
+    lanes where either operand is the identity, the swap to a1 <= a2, F2
+    rotated odd, s = (b1 + b2)/2 and dd = b2 - b1 on Lh limbs."""
+    B = F1.a.shape[0]
+
+    id1 = CG._is_one(F1.a)
+    id2 = CG._is_one(F2.a)
+    some_id = id1 | id2
+    F1b = bform_select(some_id, bform_broadcast(h, B), F1)
+    F2b = bform_select(some_id, bform_broadcast(h2, B), F2)
+
+    # order so a1 <= a2, rotate F2 odd (then a1 * a2_rot <= ~|Delta|)
+    swap = lb.mag_cmp(F1b.a, F2b.a) > 0
+    F1n = bform_select(swap, F2b, F1b)
+    F2n = rotate_to_odd(bform_select(swap, F1b, F2b))
+    a1, b1s, b1m, c1 = F1n
+    a2, b2s, b2m, c2 = F2n
+
+    # s = (b1 + b2)/2 ; dd = b2 - b1   (b's of reduced forms fit Lh)
+    b1h = lb.resize(b1m, Lh)
+    b2h = lb.resize(b2m, Lh)
+    ss, sm = lb.sm_add((b1s, b1h), (b2s, b2h))
+    sm = lb.mag_shr_bits(sm, 1)
+    dds, ddm = lb.sm_sub((b2s, b2h), (b1s, b1h))
+    return a1, b1s, b1m, c1, a2, b2s, b2m, c2, ss, sm, dds, ddm, id1, id2
+
+
 def _one_limbs_like(x, L: int):
     return lb.one_limbs(x.shape[:-1], L, x.device)
 
@@ -343,6 +375,7 @@ class CG:
         L, Lh = CGCtx.widths_for_disc_bits(disc_bits)
         self.L, self.Lh = L, Lh
         self.delta4 = delta4  # (2L,) magnitude of |Delta|/4
+        self.delta4_row = delta4[None]  # (1, 2L): one row for every lane
         # |Delta| as a (mant, top) estimate for the grouped-rho sim
         d4int = sum(int(v) << (16 * i) for i, v in enumerate(delta4.tolist()))
         dD = 4 * d4int
@@ -479,33 +512,23 @@ class CG:
         the caller has it (cuda_group.redc_mod)."""
         return cuda_group.redc_mod(x, d, self.Lh, active, inv)
 
+    def compose2_prologue(self, F1: BForm, F2: BForm):
+        """The identity masks, the substitution of h / h^2, the swap to
+        a1 <= a2, F2 rotated odd, s = (b1 + b2)/2 and dd = b2 - b1:
+        (a1, b1s, b1m, c1, a2, b2s, b2m, c2, ss, sm, dds, ddm, id1, id2),
+        one launch of K6b on the card (compose2_prologue_plain on the
+        CPU)."""
+        return cuda_group.compose_prologue(F1, F2, self.h, self.h2, self.Lh)
+
     def compose2_unreduced(self, F1: BForm, F2: BForm):
         """Everything before the reduction: the unreduced composed
         coefficients (a3, b3s, b3m, c3), the NUCOMP tail's operands
         (a1g, m2x2, mu) and the identity masks (id1, id2), in the JAX
         function's order. It reads no value on the host."""
         L, Lh = self.L, self.Lh
-        B = F1.a.shape[0]
-
-        id1 = self._is_one(F1.a)
-        id2 = self._is_one(F2.a)
+        (a1, b1s, b1m, c1, a2, b2s, b2m, c2, ss, sm, dds, ddm, id1,
+         id2) = self.compose2_prologue(F1, F2)
         some_id = id1 | id2
-        F1b = bform_select(some_id, bform_broadcast(self.h, B), F1)
-        F2b = bform_select(some_id, bform_broadcast(self.h2, B), F2)
-
-        # order so a1 <= a2, rotate F2 odd (then a1 * a2_rot <= ~|Delta|)
-        swap = lb.mag_cmp(F1b.a, F2b.a) > 0
-        F1n = bform_select(swap, F2b, F1b)
-        F2n = rotate_to_odd(bform_select(swap, F1b, F2b))
-        a1, b1s, b1m, c1 = F1n
-        a2, b2s, b2m, c2 = F2n
-
-        # s = (b1 + b2)/2 ; dd = b2 - b1   (b's of reduced forms fit Lh)
-        b1h = lb.resize(b1m, Lh)
-        b2h = lb.resize(b2m, Lh)
-        ss, sm = lb.sm_add((b1s, b1h), (b2s, b2h))
-        sm = lb.mag_shr_bits(sm, 1)
-        dds, ddm = lb.sm_sub((b2s, b2h), (b1s, b1h))
 
         # first gcd: d1 = gcd(a2, a1), beta = a1-coefficient mod a2; the
         # narrow pass takes every lane whose operands fit 16*Lxn-32 bits,
@@ -568,8 +591,7 @@ class CG:
 
         # xi = (g - eta0*|s|) / d1 exactly (integer identity); |xi| <= |s|
         prod_es = lb.mag_mul(eta0, sm, L)
-        ones = torch.ones_like(ss)
-        xi_s, tm = lb.sm_sub((ones, lb.resize(g, L)), (ones, prod_es))
+        xi_s, tm = cuda_group.canon_sm([(g, None, 1), (prod_es, None, -1)], L)
         xi = lb.mag_divexact_odd(tm, d1, Lh, inv=inv_d1)
 
         # u = xi * beta ; mu_num = u*(b2-b1) - 2*sign(s)*eta0*c1
@@ -584,17 +606,16 @@ class CG:
         inv_g = lb.inv_pow2(g, L) if shared else None
         m2 = lb.mag_divexact_odd(a2, g, L, inv=inv_g)
         a1g = lb.mag_divexact_odd(a1, g, Lh, inv=inv_g)
-        m2x2 = lb.mag_shl_bits(m2, 1, L)
+        _, m2x2 = cuda_group.canon_sm([(m2, None, 2)], L)  # m2 << 1
         mu = lb.resize(cuda_group.mod_topdown(mu_red, m2x2, self.mu_iters), L)
 
         # a3 = a1g*m2 ; b3 = b1 + a1g*mu ; c3 = ((b3/2)^2 + |D|/4)/a3
         a3 = lb.mag_mul(a1g, m2, L)
         t = lb.mag_mul(a1g, mu, L)
-        b3s, b3m = lb.sm_add((b1s, b1m), (torch.ones_like(b1s), t))
-        b3h = lb.resize(lb.mag_shr_bits(b3m, 1), self.Lsq)
+        b3s, b3m, b3h = cuda_group.canon_sm([(b1m, b1s, 1), (t, None, 1)], L,
+                                            shr=1, W_shr=self.Lsq)
         sq = lb.mag_mul(b3h, b3h, Lm)
-        _, csum = lb.canonicalize_fast(lb.resize(sq, Lm)
-                                       + lb.resize(self.delta4, Lm))
+        _, csum = cuda_group.canon_sm([(sq, None, 1), (self.delta4_row, None, 1)], Lm)
         e = lb.mag_v2(a3)
         a3_odd = lb.mag_shr_bits_dyn(a3, e)
         csum_sh = lb.mag_shr_bits_dyn(csum, e.clamp(max=16 * Lm - 1))
@@ -631,10 +652,10 @@ class CG:
         # the cofactors stay under the walk's y-cap (<= 16 Lh bits), so
         # they are cut to Lh limbs before the products
         Lxy = min(self.Lh, L)
-        sxp, mxp = lb.canonicalize_fast(xp)
-        sxc, mxc = lb.canonicalize_fast(xc)
-        syp, myp = lb.canonicalize_fast(yp)
-        syc, myc = lb.canonicalize_fast(yc)
+        (sxp, mxp), (sxc, mxc) = cuda_group.canon_sm([(xp, None, 1)], L,
+                                                     terms2=[(xc, None, 1)])
+        (syp, myp), (syc, myc) = cuda_group.canon_sm([(yp, None, 1)], L,
+                                                     terms2=[(yc, None, 1)])
         mxp, mxc = lb.resize(mxp, Lxy), lb.resize(mxc, Lxy)
         myp, myc = lb.resize(myp, Lxy), lb.resize(myc, Lxy)
 
@@ -642,21 +663,19 @@ class CG:
             return sa * sb, lb.mag_mul(lb.mag_mul(ma, mb), coeff_mag, Ln)
 
         def quad(sx, mx, sy, my):
-            """a3 x^2 + b3 x y + c3 y^2, canonical (it is a form value > 0)."""
+            """The terms of a3 x^2 + b3 x y + c3 y^2 (a form value > 0)."""
             t1s, t1m = term(sx, mx, sx, mx, a3)
             t2s, t2m = term(sx, mx, sy, my, b3m)
             t3s, t3m = term(sy, my, sy, my, c3)
-            return lb.canonicalize_fast(t1s[..., None] * t1m
-                                        + (t2s * b3s)[..., None] * t2m
-                                        + t3s[..., None] * t3m)[1]
+            return [(t1m, t1s, 1), (t2m, t2s * b3s, 1), (t3m, t3s, 1)]
 
-        nA = quad(sxp, mxp, syp, myp)
-        nC = quad(sxc, mxc, syc, myc)
+        # both canonical in one launch
+        (_, nA), (_, nC) = cuda_group.canon_sm(quad(sxp, mxp, syp, myp), Ln,
+                                               terms2=quad(sxc, mxc, syc, myc))
         v1s, v1m = term(sxp, mxp, sxc, mxc, a3)
         v3s, v3m = term(syp, myp, syc, myc, c3)
-        cs, cm = lb.canonicalize_fast(
-            (sxp * syc)[..., None] * lb.mag_mul(mxp, myc)
-            + (sxc * syp)[..., None] * lb.mag_mul(mxc, myp))
+        cs, cm = cuda_group.canon_sm([(lb.mag_mul(mxp, myc), sxp * syc, 1),
+                                      (lb.mag_mul(mxc, myp), sxc * syp, 1)], 2 * Lxy)
         nB = (2 * v1s[..., None] * v1m
               + (cs * b3s)[..., None] * lb.mag_mul(cm, b3m, Ln)
               + 2 * v3s[..., None] * v3m)

@@ -23,9 +23,11 @@ One `ComposeGraph` per (device, batch shape), held by the CG's
   call's operands, fills limb._CONST and builds the kernels (its
   launches count: they run);
 * capture: the same compose2 on static input BForms, with this thread's
-  launch keys recorded into the graph (cuda_group.capturing_launches). A
-  host sync or host-to-device copy inside compose2 fails the capture,
-  and a failed capture raises: nothing falls back to eager;
+  launch keys recorded into the graph (cuda_group.capturing_launches),
+  after a garbage collection and with the collector off (a graph freed
+  mid-capture would invalidate it). A host sync or host-to-device copy
+  inside compose2 fails the capture, and a failed capture raises:
+  nothing falls back to eager;
 * replay: copy F1 and F2 into the static inputs (nudupl2 passes one F
   twice), replay, count the graph's keys (cuda_group.count_launches) and
   return clones of the static outputs, since a caller may feed an output
@@ -46,6 +48,7 @@ batch size seen; nothing releases them.
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 
@@ -93,18 +96,28 @@ class ComposeGraph:
             self.graph = torch.cuda.CUDAGraph()
             keys: list = []
             t = time.perf_counter()
-            with torch.cuda.stream(stream), cuda_group.capturing_launches(keys):
-                self.graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    self.out = cg.compose2_eager(self.in1, self.in2)
-                except BaseException as e:
+            # a graph that the cyclic collector frees mid-capture (another
+            # CG's) would release its pool: a call that invalidates the
+            # capture. Collect first, and not during it.
+            gc.collect()
+            was_enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.stream(stream), cuda_group.capturing_launches(keys):
+                    self.graph.capture_begin(capture_error_mode="thread_local")
                     try:
-                        self.graph.capture_end()
-                    except Exception:  # the capture is already invalid
-                        pass
-                    raise RuntimeError(f"capturing compose2 at batch {B} on {dev} "
-                                       f"failed: {e}") from e
-                self.graph.capture_end()
+                        self.out = cg.compose2_eager(self.in1, self.in2)
+                    except BaseException as e:
+                        try:
+                            self.graph.capture_end()
+                        except Exception:  # the capture is already invalid
+                            pass
+                        raise RuntimeError(f"capturing compose2 at batch {B} on {dev} "
+                                           f"failed: {e}") from e
+                    self.graph.capture_end()
+            finally:
+                if was_enabled:
+                    gc.enable()
             cur.wait_stream(stream)
             self.capture_s = time.perf_counter() - t
             self.reserved_after = torch.cuda.memory_reserved(dev)

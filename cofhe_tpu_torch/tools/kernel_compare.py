@@ -40,6 +40,17 @@ measurement. From the root of a checkout, the script:
    K7 on chip_smoke's compose2 walk operands at the same batches;
 6. profiles one eager compose2 at 128 lanes with each set of kernels.
 
+With --baseline-tree DIR it compares whole compose2s instead: DIR is
+another checkout (an unpacked `git archive <commit>`), and this
+checkout's package and DIR's run in turns (DIR, this, this, DIR), each
+turn a process of its own that imports only its tree's package (and this
+checkout's chip_smoke.py for its profiles) and builds that tree's
+kernels. A turn profiles one compose2 at 128 lanes by graph replay and
+one eagerly with "other" split by section (chip_smoke.profile_compose:
+device ms and device kernels), times compose2 by replay at 128, 256 and
+16384 lanes on the card's clock, and runs 1285 replays at 128 lanes (the
+compose2 steps of the main path's decrypt) on the host's clock.
+
 With --k7-phases it runs K7 alone: the SASS of both trees' K7 instances
 at NPT = 5 (instructions by kind; in a build with -DK7_PHASES also those
 between consecutive clock reads), K7 against the baseline's in turns on
@@ -603,16 +614,99 @@ def sass_compare(smoke, cgp, base) -> None:
                               + ", ".join(f"{op} {n}" for op, n in cnt.items()))
 
 
+TREE_B = (128, 256, 16384)   # compose2 batches timed by replay
+DECRYPT_STEPS = 1285         # compose2 steps of the main path's decrypt
+
+
+def compose_turn(root: str) -> int:
+    """One turn of --baseline-tree, in a process of its own: the package
+    of the checkout `root`, profiled and timed with this checkout's
+    chip_smoke.py; the last line is a JSON object of the times."""
+    import importlib.util
+
+    sys.path.insert(0, root)
+    import torch
+
+    import cofhe_tpu_torch
+
+    if not os.path.abspath(cofhe_tpu_torch.__file__).startswith(os.path.abspath(root)):
+        raise SystemExit(f"kernel_compare: cofhe_tpu_torch does not come from {root}")
+    spec = importlib.util.spec_from_file_location("chip_smoke_this",
+                                                  os.path.join(_ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from cofhe_tpu_torch.core.cl_hsm2k import CLHSM2k
+    from cofhe_tpu_torch.ops import cuda_group, hostgmp
+    from cofhe_tpu_torch.ops.engine import TorchEngine
+    from cofhe_tpu_torch.ops.forms import bform_from_forms
+
+    cuda_group.build()
+    hsm = CLHSM2k(smoke.SEC, smoke.K)
+    cg = TorchEngine(hsm, "cuda").cg
+    ecg = TorchEngine(hsm, "cuda", graphs=False).cg
+    gmp = hostgmp.GmpClassGroup(hsm.Delta)
+    label = f"tree {root}"
+    smoke.profile_compose(torch, cg, gmp, hsm, bform_from_forms, random.Random(smoke.SEED),
+                          f"{label}, graph replay")
+    smoke.profile_compose(torch, ecg, gmp, hsm, bform_from_forms, random.Random(smoke.SEED),
+                          f"{label}, eager", sections=True)
+    rng = random.Random(smoke.SEED + 1)
+    base = gmp.nupow_batch([hsm.h] * 16, [rng.getrandbits(1100) for _ in range(16)])
+    out = {"root": root}
+    with torch.inference_mode():
+        for B in TREE_B:
+            b1 = bform_from_forms([base[rng.randrange(16)] for _ in range(B)], cg.L, "cuda")
+            b2 = bform_from_forms([base[rng.randrange(16)] for _ in range(B)], cg.L, "cuda")
+            cg.compose2(b1, b2)
+            out[f"replay_ms@{B}"] = smoke.timed(torch, lambda: cg.compose2(b1, b2),
+                                                5 if B == 16384 else 50)
+            if B == 128:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(DECRYPT_STEPS):
+                    cg.compose2(b1, b2)
+                torch.cuda.synchronize()
+                out[f"{DECRYPT_STEPS}_replays_s@128"] = time.perf_counter() - t
+    smoke.log(json.dumps(out))
+    return 0
+
+
+def tree_turns(smoke, tree: str) -> None:
+    """compose2 of this checkout against the checkout `tree`, in turns
+    (tree, this, this, tree), a process a turn (compose_turn)."""
+    runs: dict = {"baseline": [], "this": []}
+    for who in ("baseline", "this", "this", "baseline"):
+        root = os.path.abspath(tree) if who == "baseline" else _ROOT
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--compose-turn", root],
+                           capture_output=True, text=True, timeout=900)
+        for ln in p.stdout.splitlines():
+            smoke.log(f"[{who}] {ln}")
+        if p.returncode:
+            smoke.fail(f"the {who} turn failed:\n{p.stderr[-3000:]}")
+        runs[who].append(json.loads(p.stdout.strip().splitlines()[-1]))
+    for key in [k for k in runs["this"][0] if k != "root"]:
+        new, old = [r[key] for r in runs["this"]], [r[key] for r in runs["baseline"]]
+        smoke.log(f"compose2 {key}: this checkout {new[0]:.4f} / {new[1]:.4f}, baseline "
+                  f"{old[0]:.4f} / {old[1]:.4f} ({sum(old) / sum(new):.2f}x)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline-csrc", required=True,
+    ap.add_argument("--baseline-csrc",
                     help="a csrc/ directory with the earlier kernel sources")
+    ap.add_argument("--baseline-tree",
+                    help="another checkout: its compose2 against this one's, in turns")
+    ap.add_argument("--compose-turn", help=argparse.SUPPRESS)
     ap.add_argument("--k7-phases", action="store_true",
                     help="K7 only: its time beside the baseline's on compose2 walk "
                     "operands at 128, 1001 and 16384 lanes, the split of a group's "
                     "cycles by phase (builds with -DK7_PHASES, of the baseline too "
                     "where its source has the hooks) and SASS counts")
     opts = ap.parse_args()
+    if opts.compose_turn:
+        return compose_turn(opts.compose_turn)
+    if not (opts.baseline_csrc or opts.baseline_tree):
+        ap.error("give --baseline-csrc or --baseline-tree")
     import torch
 
     if not torch.cuda.is_available():
@@ -621,6 +715,12 @@ def main() -> int:
     sys.path.insert(0, _ROOT)
     import chip_smoke as smoke
 
+    if opts.baseline_tree:
+        smi = smoke.card_line()
+        smoke.log(smi)
+        tree_turns(smoke, opts.baseline_tree)
+        smoke.log(smi)
+        return 0
     port = smoke.import_port()
     if port is None:
         return 1

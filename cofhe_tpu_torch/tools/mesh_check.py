@@ -53,7 +53,20 @@ DISPATCHERS = {"xgcd_coeff_g": "xgcd_coeff_g", "mod_topdown": "mod_topdown",
                "reduce2_grouped": "reduce2_grouped_loop",
                "reduce_exact": "reduce_exact", "mag_mul": "mag_mul",
                "divexact_odd": "mag_divexact_odd", "redc_mod": "redc_mod",
-               "lehmer_euclid": "lehmer_euclid"}
+               "lehmer_euclid": "lehmer_euclid", "canon_sm": "canon_sm",
+               "compose_prologue": "compose_prologue"}
+
+
+def first_tensor(x):
+    """The first tensor in a dispatcher's argument (a tensor, or nested
+    tuples and lists of them: a K6a sum's terms, a K6b form), else None."""
+    if isinstance(x, (tuple, list)):
+        for y in x:
+            t = first_tensor(y)
+            if t is not None:
+                return t
+        return None
+    return x if hasattr(x, "is_cuda") else None
 
 
 class MeshCheckError(RuntimeError):
@@ -124,7 +137,7 @@ def make_inputs(path: str) -> None:
 
 def count_calls(cuda_group, graphs) -> dict:
     """Count the kernels run by 'kernel@batch' (batch: the rows of the
-    first operand), apart from cuda_group's own counters: each call of a
+    first tensor operand), apart from cuda_group's own counters: each call of a
     dispatcher outside a graph capture (one launch on a card, the plain
     version on the CPU) and, for each replay of a
     compose2 graph, each kernel it captured. On a card the counts must
@@ -140,8 +153,9 @@ def count_calls(cuda_group, graphs) -> dict:
 
     for name, attr in DISPATCHERS.items():
         def counted(*a, _orig=getattr(cuda_group, attr), _name=name, **kw):
-            if not (a[0].is_cuda and torch.cuda.is_current_stream_capturing()):
-                add(f"{_name}@{math.prod(a[0].shape[:-1])}")
+            t = first_tensor(a)
+            if not (t.is_cuda and torch.cuda.is_current_stream_capturing()):
+                add(f"{_name}@{math.prod(t.shape[:-1])}")
             return _orig(*a, **kw)
 
         setattr(cuda_group, attr, counted)

@@ -54,7 +54,8 @@ def test_imports_without_jax_or_the_jax_package():
             "node.client", "node.handlers", "node.network_details",
             "node.nodes", "node.server", "node.wire", "ops.engine",
             "ops.nupow2", "parallel.distributed", "utils.benchmark",
-            "tools.mesh_check", "examples.tutorial", "scripts.start_network"}
+            "tools.mesh_check", "examples.tutorial", "scripts.start_network",
+            "ops.cuda_group", "ops.forms2", "ops.graphs", "tools.kernel_compare"}
     assert {f"cofhe_tpu_torch.{m}" for m in want} <= set(got["names"]), out.stdout
 
 
@@ -96,3 +97,5 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         cuda_group.mod_topdown_cuda(f, g[:, :4].contiguous(), 50)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_group.reduce2_grouped_loop_cuda(f, g, f, 1.0, 1, 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_group.canon_sm_cuda([(f, None, 1), (g, None, -1)], 12)

@@ -506,8 +506,9 @@ def test_dispatcher_on_cpu_tensors_is_the_plain_version():
 def test_nucomp_compose2_card_route_reads_nothing_on_the_host(toy_hsm, monkeypatch):
     """The NUCOMP compose2 a CUDA graph captures, on the CPU: with every
     kernel (K7 among them) an opaque call to its plain version and the
-    card's route, it reads no tensor on the host, walks once and gives the
-    default compose2's reduced forms."""
+    card's route, it reads no tensor on the host, walks once, takes its
+    canonicalizations through K6a and gives the default compose2's
+    reduced forms."""
     jcg, pcg, L = _cgs(toy_hsm)
     ncg = CG(pcg.disc_bits, pcg.delta4, pcg.h, pcg.h2, use_nucomp=True)
     rng = random.Random(9)
@@ -523,6 +524,9 @@ def test_nucomp_compose2_card_route_reads_nothing_on_the_host(toy_hsm, monkeypat
         out = ncg.compose2_eager(_guarded(p1), _guarded(p2))
     assert isinstance(out.a, _NoSync)
     assert calls["lehmer_euclid"] == 1
+    # K6a: compose2's four sums, then the tail's cofactors (two pairs), its
+    # two form values (one pair) and the cross term; K6b once
+    assert (calls["canon_sm"], calls["compose_prologue"]) == (8, 1)
     assert _tuples(bform_to_forms(BForm(*(_plain(x) for x in out)))) == want
 
 
