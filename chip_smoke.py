@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py       # from the root of a checkout
 
-1. Builds the ten Hopper kernels from cofhe_tpu_torch/csrc with nvcc
+1. Builds the thirteen Hopper kernels from cofhe_tpu_torch/csrc with nvcc
    (one nvcc a source, all started together) and holds each one against
    its plain torch version on the card, at the shapes the main path gives
    it and at 128, 1001 and 16384 lanes (bit-exact, and against Python
@@ -44,11 +44,17 @@
    128, 256 and 16384 lanes (two-term sums with the contract's edge rows
    first, three-term sums with multipliers 1, -1 and 2 and narrower terms,
    one redundant term with a top limb that carries; b >> 1 beside; two sums
-   a launch), and K6b, compose2's prologue, on compose2 operand pairs
-   (identities on either side and both, self-composes, inverse pairs,
-   powers of f) at the same batches: bit-exact against their plain
-   versions, K6a against Python integers. No K6a or K6b instance may
-   spill (ptxas).
+   a launch), and K6b, compose2's prologue with the first gcd's operands,
+   on compose2 operand pairs (identities on either side and both,
+   self-composes, inverse pairs, powers of f) and on rows whose a's have
+   nb - 1, nb and nb + 1 bits (nb = 16 Lxn - 32: both sides of the
+   narrow pass) at the same batches; K6c, the bridge between compose2's
+   gcds, with and without the narrow pass (d1 = 2^120 - 1 and 2^120 on
+   narrow and wide lanes, identity lanes), K6d, the second gcd's merge,
+   and K6e, c3's operands (e = v2(a3) = 0, 15, 16, 32, 16 L - 1 and a zero
+   a3), at compose2's widths on the same batches: bit-exact against their
+   plain versions, K6a, K6c, K6d and K6e against Python integers. No
+   K6a-K6e instance may spill (ptxas).
 2. Drives the main path once at sec=128, k=128 through the facade:
    keygen, encrypt_tensor ct(2x64), scal_ciphertext_tensors with pt(64x64)
    (16384 ladder lanes), decrypt_tensor; every plaintext must equal the
@@ -62,7 +68,7 @@
    The main path's 128 ciphertexts are then decrypted once more by graph
    replays and once by an eager engine (graphs=False): the c1^sk forms and
    the plaintexts must be bit-identical, and the launch counts of all
-   ten kernels equal; both wall times are printed. Operands are recorded from
+   thirteen kernels equal; both wall times are printed. Operands are recorded from
    the eager calls (a replay calls no wrapper): one decrypt compose2 (128
    lanes) from the eager decrypt, one chain (256) and one ladder (16384)
    compose2 from the graphs' warm-ups. K1 is then checked again, with and
@@ -108,7 +114,7 @@
    the Bezout identity mod m. One compose2 on the same 128 forms is
    profiled four ways: the default tail and the NUCOMP tail, each eager
    and as a graph replay: wall and device time (the device's busy share),
-   device time split by kernel (the ten, and "other": what is left in
+   device time split by kernel (the thirteen, and "other": what is left in
    torch ops), device kernels and copies, and Lehmer groups a lane; for
    the eager ones "other" split by section of compose2 (the prologue, the
    first-gcd selects, the second-gcd selects, xi / u / mu_red, the a3 / b3
@@ -136,7 +142,7 @@
    K5d and K4 also against Python integers, with the cuFFT route (their
    plain versions on the card) as each one's plain time; K6a at each of
    compose2's and the NUCOMP tail's calls, also against Python integers,
-   and K6b.
+   K6b, K6c, K6d and K6e (K6e also against Python integers).
 8. Prints the card's name and power limit, one JSON line with each
    kernel's numbers (launches in all and by path), and as the last line
    {"ok": true, "device": {...}}.
@@ -264,6 +270,11 @@ K5M_EDGE_SHAPES = ((1, 1, 1), (1, 1, 2), (1, 1, 3), (8, 8, 8), (8, 8, 16),
 # products, L, Lm) and the smallest
 OPS_K6A, OPS_K6A_TERM, OPS_K6B_L = 28, 2, 4
 K6A_W = (8, 72, 144, 264)
+# K6b's first-gcd operands, K6c and K6d: a select and its store an output
+# limb; K6e an output limb: its two staged limbs, the two shifts, the mask
+# and the or (and one a staged limb)
+OPS_K6_SEL, OPS_K6E = 2, 6
+K6_KERNELS = ("canon_sm", "compose_prologue", "gcd_bridge", "gcd2_merge", "c3_operands")
 # compose2's sections, by the comment that opens each in
 # forms2.CG.compose2_unreduced (the prologue runs from its start)
 SECTION_MARKS = (("first-gcd selects", "# first gcd"),
@@ -1047,12 +1058,42 @@ def k6a_bound(B, W, rows, W_shr=None):
     return bound(ops, nbytes)
 
 
-def k6b_bound(B, L, Lh):
+def k6b_bound(B, L, Lh, Lxn=None):
     """K6b's bound: F1 and F2 read once, the six form rows, four signs, two
-    Lh rows and two masks written once; two K6a sums at Lh and the a rows'
-    sums and compare."""
+    Lh rows and two masks written once, and with Lxn < L the first gcd's
+    mask and four operand rows; two K6a sums at Lh, the a rows' sums and
+    compare, and OPS_K6_SEL an operand limb."""
     nbytes = 4.0 * B * 2 * (3 * L + 1) + 4.0 * B * (6 * L + 4 + 2 * Lh) + 2.0 * B
-    return bound(B * (2 * OPS_K6A * Lh + OPS_K6B_L * L), nbytes)
+    ops = B * (2 * OPS_K6A * Lh + OPS_K6B_L * L)
+    if Lxn is not None and Lxn < L:
+        nbytes += 4.0 * B * (2 * Lxn + 2 * L) + B
+        ops += OPS_K6_SEL * B * (2 * Lxn + 2 * L)
+    return bound(ops, nbytes)
+
+
+def k6c_bound(B, L, Lxn, Lh, n_narrow):
+    """K6c's bound: d1 and beta read once from the pass each lane takes
+    (n_narrow lanes at Lxn limbs, the rest at L), the three masks, and d1,
+    beta at L, fits8, rare, d1_8 and the two Lh rows written once; without
+    a narrow pass (Lxn = 0) d1 read from the wide pass and d1, beta not
+    written. OPS_K6_SEL an output limb."""
+    rd = 2 * (n_narrow * Lxn + (B - n_narrow) * L) if Lxn else B * L
+    wr = B * ((2 * L if Lxn else 0) + 8 + 2 * Lh)
+    return bound(OPS_K6_SEL * wr, 4.0 * (rd + wr) + B * (5 if Lxn else 4))
+
+
+def k6d_bound(B, W8, Lh, n_fits8):
+    """K6d's bound: each lane's two rows read once from the pipeline fits8
+    picks (W8 limbs where it is set, Lh elsewhere), the mask, and g and
+    eta0 written once at Lh; OPS_K6_SEL an output limb."""
+    rd = 2 * (n_fits8 * W8 + (B - n_fits8) * Lh)
+    return bound(OPS_K6_SEL * 2 * B * Lh, 4.0 * (rd + 2 * B * Lh) + B)
+
+
+def k6e_bound(B, L, Lm):
+    """K6e's bound: a3 and csum read once, the two Lm rows written once;
+    OPS_K6E an output limb and one a staged limb."""
+    return bound(B * (OPS_K6E * 2 * Lm + L + Lm), 4.0 * B * (L + 3 * Lm))
 
 
 def check_k6a(torch, cgp, lb, own, B):
@@ -1111,17 +1152,56 @@ def k6b_operands(cg, gmp, hsm, port, own, B):
     return f1, f2
 
 
-def check_k6b(torch, cgp, cg, gmp, hsm, port, own, B):
-    """K6b on k6b_operands at B lanes: bit-exact against its plain version
-    (forms2.compose2_prologue_plain), with identity, swapped and rotated
-    lanes live. Returns its numbers."""
+def _rand_bits(own, bits: int) -> int:
+    """A random integer of exactly `bits` bits (0 for 0)."""
+    return own.getrandbits(bits) | (1 << (bits - 1)) if bits > 0 else 0
+
+
+def k6b_wide_forms(torch, lb, own, cg, B):
+    """K6b's operands for the first gcd's select at B lanes: a rows of nb -
+    1, nb and nb + 1 bits (nb = 16 Lxn - 32) on either side, then random
+    ones around nb (no reduced form at sec=128 passes nb, so the compose2
+    operands take the narrow pass on every lane); b below 2^(16 Lh - 2)
+    with random signs, c random. Returns (F1, F2, h, h2, Lh, Lxn)."""
+    from cofhe_tpu_torch.ops.forms import BForm
+
+    L, Lh, nb = cg.L, cg.Lh, 16 * cg.Lxn - 32
+    edge = (nb - 1, nb, nb + 1)
+    bits = [(x, y) for x in edge for y in edge]
+    bits += [(own.randrange(nb - 64, nb + 64), own.randrange(nb - 64, nb + 64))
+             for _ in range(B - len(bits))]
+
+    def form(k):
+        a = _limbs(torch, lb, [_rand_bits(own, x[k]) for x in bits[:B]], L)
+        b = _limbs(torch, lb, [own.getrandbits(16 * Lh - 2) for _ in range(B)], L)
+        c = _limbs(torch, lb, [own.getrandbits(16 * L - 2) for _ in range(B)], L)
+        sg = torch.tensor([own.choice((-1, 1)) for _ in range(B)], dtype=torch.int32,
+                          device="cuda")
+        return BForm(a, sg, b, c)
+
+    return form(0), form(1), cg.h, cg.h2, Lh, cg.Lxn
+
+
+def check_k6b(torch, cgp, lb, cg, gmp, hsm, port, own, B):
+    """K6b on k6b_operands at B lanes, with the first gcd's operands (Lxn <
+    L): bit-exact against its plain version (forms2.compose2_prologue_plain),
+    with identity, swapped and rotated lanes live; and on k6b_wide_forms,
+    where the first gcd's select takes both sides. Returns its numbers."""
     f1, f2 = k6b_operands(cg, gmp, hsm, port, own, B)
     b1, b2 = (port.bform_from_forms(f, cg.L, "cuda") for f in (f1, f2))
-    args = (b1, b2, cg.h, cg.h2, cg.Lh)
+    args = (b1, b2, cg.h, cg.h2, cg.Lh, cg.Lxn)
     got = cgp.compose_prologue_cuda(*args)
     err = max_abs_diff(torch, got, cgp.compose_prologue_plain(*args))
-    if err:
-        fail(f"K6b L={cg.L} B={B} differs from its plain version (max {err})")
+    if err or len(got) != 19:
+        fail(f"K6b L={cg.L} Lxn={cg.Lxn} B={B} differs from its plain version (max "
+             f"{err}, {len(got)} outputs)")
+    wide = k6b_wide_forms(torch, lb, own, cg, B)
+    gw = cgp.compose_prologue_cuda(*wide)
+    err = max_abs_diff(torch, gw, cgp.compose_prologue_plain(*wide))
+    narrow = int(gw[14].sum())
+    if err or not 0 < narrow < B:
+        fail(f"K6b B={B}: on wide a rows it differs from its plain version (max {err}) "
+             f"or the first gcd's select is one-sided ({narrow} narrow lanes of {B})")
     if [got[12].tolist(), got[13].tolist()] != [[f.a == 1 for f in fs] for fs in (f1, f2)]:
         fail(f"K6b B={B}: the identity masks are wrong")
     live = [(x.a, y.a) for x, y in zip(f1, f2) if x.a != 1 and y.a != 1]
@@ -1133,11 +1213,136 @@ def check_k6b(torch, cgp, cg, gmp, hsm, port, own, B):
              f"lanes missing")
     ms = timed(torch, lambda: cgp.compose_prologue_cuda(*args), TIMING_REPS)
     plain_ms = timed(torch, lambda: cgp.compose_prologue_plain(*args), 1, warm=False)
-    bms, by = k6b_bound(B, cg.L, cg.Lh)
-    log(f"K6b compose_prologue L={cg.L} Lh={cg.Lh} B={B}: bit-exact vs plain ({ids} "
-        f"identity lanes, {swapped} swapped, {rotated} rotated); kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bms:.5f} ms ({by}, "
-        f"{bms / ms:.1%} of it)")
+    bms, by = k6b_bound(B, cg.L, cg.Lh, cg.Lxn)
+    log(f"K6b compose_prologue L={cg.L} Lh={cg.Lh} Lxn={cg.Lxn} B={B}: bit-exact vs "
+        f"plain ({ids} identity lanes, {swapped} swapped, {rotated} rotated; on wide a "
+        f"rows {narrow} narrow and {B - narrow} wide lanes); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.2f} ms, bound {bms:.5f} ms ({by}, {bms / ms:.1%} of it)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, err=0)
+
+
+def k6c_operands(torch, lb, own, cg, B):
+    """K6c's operands at compose2's widths on B lanes: d1 = 2^120 - 1, 2^120,
+    2^119, 2^121 + 1 and 1 on five narrow lanes and on five wide ones, then
+    random bit lengths up to each pass's width, fx random; beta random;
+    identity lanes on either side. Returns (d1_w, beta_w, id1, id2, Lh,
+    (d1_n, beta_n, fx))."""
+    L, Lxn, Lh = cg.L, cg.Lxn, cg.Lh
+    edge = [(1 << 120) - 1, 1 << 120, 1 << 119, (1 << 121) + 1, 1]
+
+    def d1s(W):
+        return (edge * 2 + [_rand_bits(own, own.randrange(1, 16 * W + 1))
+                            for _ in range(B)])[:B]
+
+    def rand(W):
+        return _limbs(torch, lb, [own.getrandbits(own.randrange(1, 16 * W + 1))
+                                      for _ in range(B)], W)
+
+    def mask(p, head=()):
+        vals = list(head) + [own.random() < p for _ in range(B - len(head))]
+        return torch.tensor(vals[:B], dtype=torch.bool, device="cuda")
+
+    fx = mask(0.5, [True] * 5 + [False] * 5)
+    return (_limbs(torch, lb, d1s(L), L), rand(L), mask(0.1), mask(0.1), Lh,
+            (_limbs(torch, lb, d1s(Lxn), Lxn), rand(Lxn), fx))
+
+
+def check_k6c(torch, cgp, lb, own, cg, B):
+    """K6c on k6c_operands at B lanes, with and without the narrow pass:
+    bit-exact against its plain version (forms2.gcd_bridge_plain), and d1,
+    fits8 and rare against Python integers on the first 256 lanes, both
+    sides of 2^120 and rare lanes live. Returns its numbers."""
+    args = k6c_operands(torch, lb, own, cg, B)
+    wide = args[:5] + (None,)
+    got = cgp.gcd_bridge_cuda(*args)
+    err = max(max_abs_diff(torch, got, cgp.gcd_bridge_plain(*args)),
+              max_abs_diff(torch, cgp.gcd_bridge_cuda(*wide), cgp.gcd_bridge_plain(*wide)))
+    if err:
+        fail(f"K6c L={cg.L} Lxn={cg.Lxn} B={B} differs from its plain version (max {err})")
+    n = min(B, 256)
+    d1_w, _, id1, id2, _, (d1_n, _, fx) = args
+    d1 = [x if f else y for x, y, f in zip(lb.limbs_to_ints(d1_n[:n].cpu()),
+                                           lb.limbs_to_ints(d1_w[:n].cpu()), fx[:n].tolist())]
+    fits = [v < 1 << 120 for v in d1]
+    ids = [x or y for x, y in zip(id1[:n].tolist(), id2[:n].tolist())]
+    if lb.limbs_to_ints(got[0][:n].cpu()) != d1 or got[2][:n].tolist() != fits \
+            or got[3][:n].tolist() != [not f and not i for f, i in zip(fits, ids)]:
+        fail(f"K6c B={B}: d1, fits8 or rare differ from Python integers")
+    if all(fits) or not any(fits) or not got[3].any():
+        fail(f"K6c B={B}: fits8 one-sided or no rare lane")
+    ms = timed(torch, lambda: cgp.gcd_bridge_cuda(*args), TIMING_REPS)
+    plain_ms = timed(torch, lambda: cgp.gcd_bridge_plain(*args), 1, warm=False)
+    bms, by = k6c_bound(B, cg.L, cg.Lxn, cg.Lh, int(fx.sum()))
+    log(f"K6c gcd_bridge L={cg.L} Lxn={cg.Lxn} Lh={cg.Lh} B={B}: bit-exact vs plain "
+        f"(with and without the narrow pass) and Python integers ({int(fx.sum())} narrow "
+        f"lanes, {int(got[2].sum())} fits8, {int(got[3].sum())} rare); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.2f} ms, bound {bms:.5f} ms ({by}, {bms / ms:.1%} of it)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, err=0)
+
+
+def check_k6d(torch, cgp, lb, own, cg, B):
+    """K6d at compose2's widths on B lanes: g8, eta0_8 below 2^128, gF,
+    eta0F below 2^(16 Lh), fits8 random; bit-exact against its plain
+    version (forms2.gcd2_merge_plain) and against Python integers on the
+    first 256 lanes. Returns its numbers."""
+    Lh = cg.Lh
+
+    def rand(W):
+        return [own.getrandbits(own.randrange(1, 16 * W + 1)) for _ in range(B)]
+
+    vals = [rand(8), rand(8), rand(Lh), rand(Lh)]
+    fits8 = torch.tensor([own.random() < 0.5 for _ in range(B)], dtype=torch.bool,
+                         device="cuda")
+    args = (*(_limbs(torch, lb, v, w) for v, w in zip(vals, (8, 8, Lh, Lh))), fits8)
+    got = cgp.gcd2_merge_cuda(*args)
+    err = max_abs_diff(torch, got, cgp.gcd2_merge_plain(*args))
+    if err:
+        fail(f"K6d Lh={Lh} B={B} differs from its plain version (max {err})")
+    n = min(B, 256)
+    f = fits8[:n].tolist()
+    for k, out in enumerate(got):
+        if lb.limbs_to_ints(out[:n].cpu()) != [x if s else y for x, y, s in
+                                                zip(vals[k][:n], vals[k + 2][:n], f)]:
+            fail(f"K6d B={B}: {('g', 'eta0')[k]} differs from Python integers")
+    ms = timed(torch, lambda: cgp.gcd2_merge_cuda(*args), TIMING_REPS)
+    plain_ms = timed(torch, lambda: cgp.gcd2_merge_plain(*args), 1, warm=False)
+    bms, by = k6d_bound(B, 8, Lh, int(fits8.sum()))
+    log(f"K6d gcd2_merge Lh={Lh} B={B}: bit-exact vs plain and Python integers "
+        f"({int(fits8.sum())} fits8 lanes); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+        f"bound {bms:.5f} ms ({by}, {bms / ms:.1%} of it)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, err=0)
+
+
+def check_k6e(torch, cgp, lb, own, cg, B):
+    """K6e at compose2's widths (a3 at L, csum at Lm) on B lanes: a3 with
+    e = 0, 15, 16, 32, 16 L - 1 and a zero a3 first, then random a3 with
+    random trailing zeros; csum random, one lane all 0xFFFF. Bit-exact
+    against its plain version (forms2.c3_operands_plain) and against Python
+    integers on the first 256 lanes. Returns its numbers."""
+    L, Lm = cg.L, cg.Lm
+    a3 = [1 << e for e in (0, 15, 16, 32, 16 * L - 1)] + [0]
+    a3 += [((own.getrandbits(16 * L) | 1) << own.randrange(16 * L)) % (1 << (16 * L))
+           for _ in range(B - len(a3))]
+    cs = [own.getrandbits(16 * Lm) for _ in range(B)]
+    cs[1] = (1 << (16 * Lm)) - 1
+    args = (_limbs(torch, lb, a3, L), _limbs(torch, lb, cs, Lm))
+    got = cgp.c3_operands_cuda(*args)
+    err = max_abs_diff(torch, got, cgp.c3_operands_plain(*args))
+    if err:
+        fail(f"K6e L={L} Lm={Lm} B={B} differs from its plain version (max {err})")
+    n = min(B, 256)
+    es = [(v & -v).bit_length() - 1 if v else 16 * L for v in a3[:n]]
+    if lb.limbs_to_ints(got[0][:n].cpu()) != [c >> min(e, 16 * Lm - 1)
+                                              for c, e in zip(cs, es)] \
+            or lb.limbs_to_ints(got[1][:n].cpu()) != [(v >> e) % (1 << (16 * Lm))
+                                                      for v, e in zip(a3, es)]:
+        fail(f"K6e B={B}: differs from Python integers")
+    ms = timed(torch, lambda: cgp.c3_operands_cuda(*args), TIMING_REPS)
+    plain_ms = timed(torch, lambda: cgp.c3_operands_plain(*args), 1, warm=False)
+    bms, by = k6e_bound(B, L, Lm)
+    log(f"K6e c3_operands L={L} Lm={Lm} B={B}: bit-exact vs plain and Python integers "
+        f"(e = 0, 15, 16, 32, 16 L - 1 and a zero a3 first); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.2f} ms, bound {bms:.5f} ms ({by}, {bms / ms:.1%} of it)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, err=0)
 
 
@@ -1145,7 +1350,7 @@ def check_k6b(torch, cgp, cg, gmp, hsm, port, own, B):
 
 
 class Recorder:
-    """Wraps the kernel wrappers of cuda_group (all ten, or the chosen
+    """Wraps the kernel wrappers of cuda_group (all thirteen, or the chosen
     ones): keeps the operands of the first eager call at each (kernel,
     width, extra, batch) key in the chosen (phase, batch) pairs. A graph
     replay calls no wrapper and a capture runs no kernel, so operands come
@@ -1157,7 +1362,8 @@ class Recorder:
     WRAPPERS = ("xgcd_coeff_g_cuda", "mod_topdown_cuda", "reduce2_grouped_loop_cuda",
                 "reduce_exact_cuda", "mag_mul_cuda", "mag_divexact_odd_cuda",
                 "redc_mod_cuda", "lehmer_euclid_cuda", "canon_sm_cuda",
-                "compose_prologue_cuda")
+                "compose_prologue_cuda", "gcd_bridge_cuda", "gcd2_merge_cuda",
+                "c3_operands_cuda")
 
     def __init__(self, torch, cgp, want=None, wrappers=None):
         self.torch, self.cgp = torch, cgp
@@ -1233,16 +1439,33 @@ class Recorder:
                       (terms, W, shr, W_shr, terms2))
             return orig["canon_sm_cuda"](terms, W, shr=shr, W_shr=W_shr, terms2=terms2)
 
-        def prologue(F1, F2, h, h2, Lh):
-            rec._note(("compose_prologue", F1.a.shape[1], Lh, F1.a.shape[0]),
-                      (F1, F2, h, h2, Lh))
-            return orig["compose_prologue_cuda"](F1, F2, h, h2, Lh)
+        def prologue(F1, F2, h, h2, Lh, Lxn=None):
+            L = F1.a.shape[1]
+            rec._note(("compose_prologue", L, f"{Lh},Lxn={Lxn}" if Lxn is not None
+                       and Lxn < L else Lh, F1.a.shape[0]), (F1, F2, h, h2, Lh, Lxn))
+            return orig["compose_prologue_cuda"](F1, F2, h, h2, Lh, Lxn)
+
+        def bridge(d1_w, beta_w, id1, id2, Lh, narrow=None):
+            Lxn = 0 if narrow is None else narrow[0].shape[1]
+            rec._note(("gcd_bridge", d1_w.shape[1], f"Lxn={Lxn},Lh={Lh}", d1_w.shape[0]),
+                      (d1_w, beta_w, id1, id2, Lh, narrow))
+            return orig["gcd_bridge_cuda"](d1_w, beta_w, id1, id2, Lh, narrow)
+
+        def merge(g8, eta0_8, gF, eta0F, fits8):
+            rec._note(("gcd2_merge", gF.shape[1], g8.shape[1], g8.shape[0]),
+                      (g8, eta0_8, gF, eta0F, fits8))
+            return orig["gcd2_merge_cuda"](g8, eta0_8, gF, eta0F, fits8)
+
+        def c3(a3, csum):
+            rec._note(("c3_operands", csum.shape[1], a3.shape[1], a3.shape[0]), (a3, csum))
+            return orig["c3_operands_cuda"](a3, csum)
 
         new = {"xgcd_coeff_g_cuda": xgcd, "mod_topdown_cuda": mod,
                "reduce2_grouped_loop_cuda": red, "reduce_exact_cuda": exact,
                "mag_mul_cuda": mul, "mag_divexact_odd_cuda": quo, "redc_mod_cuda": redc,
                "lehmer_euclid_cuda": walk, "canon_sm_cuda": canon,
-               "compose_prologue_cuda": prologue}
+               "compose_prologue_cuda": prologue, "gcd_bridge_cuda": bridge,
+               "gcd2_merge_cuda": merge, "c3_operands_cuda": c3}
         for n in self.orig:
             setattr(self.cgp, n, new[n])
         return self
@@ -1269,9 +1492,9 @@ def reset_counts(cgp) -> None:
 
 
 def path_kernels(cgp, nucomp: bool = False) -> list:
-    """The kernels a path must launch: all ten where it takes the NUCOMP
-    tail (the legacy path), else all but K7, the tail's Lehmer walk (K6a
-    and K6b run in every compose2)."""
+    """The kernels a path must launch: all thirteen where it takes the
+    NUCOMP tail (the legacy path), else all but K7, the tail's Lehmer walk
+    (K6a-K6e run in every compose2)."""
     return [n for n in cgp.KERNELS if nucomp or n != "lehmer_euclid"]
 
 
@@ -1831,7 +2054,7 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
     if name in ("mag_mul", "divexact_odd", "redc_mod"):
         ms, plain_ms, (bms, by, row["bound_cuda_cores_ms"]), trips = limb_row(
             torch, cgp, lb, row, key, args)
-    elif name in ("canon_sm", "compose_prologue"):
+    elif name in K6_KERNELS:
         ms, plain_ms, (bms, by), trips = k6_row(torch, cgp, lb, row, key, args)
     elif name == "xgcd_coeff_g":
         f, g, m, nbits = args
@@ -1947,6 +2170,12 @@ def row_name(key) -> str:
         shape = f"W={W},terms={extra}"
     elif name == "compose_prologue":
         shape = f"L={W},Lh={extra}"
+    elif name == "gcd_bridge":
+        shape = f"L={W},{extra}"
+    elif name == "gcd2_merge":
+        shape = f"Lh={W},W8={extra}"
+    elif name == "c3_operands":
+        shape = f"Lm={W},L={extra}"
     else:
         shape = f"W={W}"
     return f"{name}[{shape}]@B={B}"
@@ -2000,9 +2229,9 @@ def _flat(x) -> list:
 
 
 def k6_row(torch, cgp, lb, row, key, args):
-    """K6a or K6b at one recorded main-path call: against its plain
-    version (K6a also against Python integers on the first 256 lanes);
-    (ms, plain ms, bound, trips)."""
+    """K6a, K6b, K6c, K6d or K6e at one recorded main-path call: against its
+    plain version (K6a and K6e also against Python integers on the first
+    256 lanes); (ms, plain ms, bound, trips)."""
     name, W, _, B = key
     if name == "canon_sm":
         terms, Wc, shr, W_shr, terms2 = args
@@ -2025,13 +2254,44 @@ def k6_row(torch, cgp, lb, row, key, args):
                 fail(f"{row['name']}: differs from Python integers on the recorded operands")
         bnd = k6a_bound(B, Wc, rows, W_shr)
         trips = f"no loop: {len(rows)} sum(s) of {len(terms)} terms"
-    else:
-        F1, F2, h, h2, Lh = args
-        fn = lambda: cgp.compose_prologue_cuda(F1, F2, h, h2, Lh)  # noqa: E731
-        plain = lambda: cgp.compose_prologue_plain(F1, F2, h, h2, Lh)  # noqa: E731
+    elif name == "compose_prologue":
+        F1, F2, h, h2, Lh, Lxn = args
+        fn = lambda: cgp.compose_prologue_cuda(F1, F2, h, h2, Lh, Lxn)  # noqa: E731
+        plain = lambda: cgp.compose_prologue_plain(F1, F2, h, h2, Lh, Lxn)  # noqa: E731
         got = fn()
-        bnd = k6b_bound(B, W, Lh)
-        trips = f"no loop: {int((got[12] | got[13]).sum())} identity lanes"
+        bnd = k6b_bound(B, W, Lh, Lxn)
+        trips = (f"no loop: {int((got[12] | got[13]).sum())} identity lanes"
+                 + (f", {int(got[14].sum())} narrow lanes" if len(got) > 14 else ""))
+    elif name == "gcd_bridge":
+        fn = lambda: cgp.gcd_bridge_cuda(*args)  # noqa: E731
+        plain = lambda: cgp.gcd_bridge_plain(*args)  # noqa: E731
+        got = fn()
+        nar = args[5]
+        n_nar = 0 if nar is None else int(nar[2].sum())
+        bnd = k6c_bound(B, W, 0 if nar is None else nar[0].shape[1], args[4], n_nar)
+        trips = (f"no loop: {n_nar} narrow lanes, {int(got[2].sum())} fits8, "
+                 f"{int(got[3].sum())} rare")
+    elif name == "gcd2_merge":
+        fn = lambda: cgp.gcd2_merge_cuda(*args)  # noqa: E731
+        plain = lambda: cgp.gcd2_merge_plain(*args)  # noqa: E731
+        got = fn()
+        bnd = k6d_bound(B, args[0].shape[1], W, int(args[4].sum()))
+        trips = f"no loop: {int(args[4].sum())} fits8 lanes"
+    else:
+        a3, csum = args
+        fn = lambda: cgp.c3_operands_cuda(a3, csum)  # noqa: E731
+        plain = lambda: cgp.c3_operands_plain(a3, csum)  # noqa: E731
+        got = fn()
+        n = min(B, 256)
+        vals, cs = lb.limbs_to_ints(a3[:n].cpu()), lb.limbs_to_ints(csum[:n].cpu())
+        es = [(v & -v).bit_length() - 1 if v else 16 * a3.shape[1] for v in vals]
+        if lb.limbs_to_ints(got[0][:n].cpu()) != [c >> min(e, 16 * W - 1)
+                                                  for c, e in zip(cs, es)] \
+                or lb.limbs_to_ints(got[1][:n].cpu()) != [(v >> e) % (1 << (16 * W))
+                                                          for v, e in zip(vals, es)]:
+            fail(f"{row['name']}: differs from Python integers on the recorded operands")
+        bnd = k6e_bound(B, a3.shape[1], W)
+        trips = f"no loop: v2(a3) {_stats(torch.tensor(es))} on the first {n} lanes"
     row["max_abs_err"] = max_abs_diff(torch, _flat(got), _flat(plain()))
     plain_ms = timed(torch, plain, 1, warm=False)
     return timed(torch, fn, TIMING_REPS), plain_ms, bnd, trips
@@ -2164,7 +2424,7 @@ def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128,
     """Host wall time and device time of one compose2 at the decrypt
     ladder's batch (the device's busy share of a step), its span on the
     card's clock between CUDA events recorded before and after it, the
-    device time split into the ten kernels and everything else, and with
+    device time split into the thirteen kernels and everything else, and with
     the NUCOMP tail the Lehmer walk's groups a lane (a replay calls no
     dispatcher: there `groups`, an eager call's on the same forms). A graph
     replay is profiled as it runs: copies in, one replay, clones out. With
@@ -2198,7 +2458,7 @@ def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128,
     split = dict.fromkeys(("xgcd_coeff_g", "mod_topdown", "reduce2_grouped",
                            "reduce_exact", "mag_mul", "divexact_odd", "redc_mod",
                            "lehmer_euclid", "canon_sm", "compose_prologue",
-                           "other"), 0.0)
+                           "gcd_bridge", "gcd2_merge", "c3_operands", "other"), 0.0)
     for e in device:
         k = "lehmer_euclid" if any(n in e.name for n in K7_DEVICE) else next(
             (n for n in split if n + "_kernel" in e.name), "other")
@@ -2280,7 +2540,8 @@ def report_build(cgp) -> None:
             if ln.startswith("== ") or "registers" in ln or "Compiling entry" in ln:
                 log("  " + ln.strip())
         for (kname, args), p in sorted(ptxas_instances(cgp.BUILD_INFO["log"]).items()):
-            shapes = [f"{sh}" for sh, n in compose2_npt().items() if n == (kname, args[0])]
+            shapes = [f"{sh}" for sh, n in compose2_npt().items()
+                      if n == (kname, args[0] if args else None)]
             log(f"ptxas {kname}_kernel<{', '.join(map(str, args))}>"
                 + (f" (compose2: {', '.join(shapes)})" if shapes else "")
                 + f": {p.get('regs')} registers, {p.get('stack')} bytes stack frame, "
@@ -2290,8 +2551,8 @@ def report_build(cgp) -> None:
 
 
 def compose2_npt() -> dict:
-    """{shape: (kernel, NPT)} of the K5m, K5d, K4, KT, K7, K6a and K6b
-    calls compose2 makes: K5m (La, Lb, L_out) and K5d (Lx, Ly, L_out) at ceil(L_out / 32),
+    """{shape: (kernel, NPT)} of the K5m, K5d, K4, KT, K7 and K6a-K6e
+    calls compose2 makes (NPT None: a kernel with no NPT template): K5m (La, Lb, L_out) and K5d (Lx, Ly, L_out) at ceil(L_out / 32),
     K4 (Lx, Ld) at ceil(N / 32), N = max(Lx, steps + Ld) + 1, KT and K7
     (the NUCOMP tail's) at ceil(L / 32)."""
     out = {sh: ("mag_mul", -(-sh[2] // 32)) for sh in K5M_SHAPES}
@@ -2306,23 +2567,26 @@ def compose2_npt() -> dict:
     out[("K6a at L", KT_L)] = ("canon_sm", -(-KT_L // 32))
     out[("K6a csum", K5M_SHAPES[-1][2])] = ("canon_sm", -(-K5M_SHAPES[-1][2] // 32))
     out[("K6b", KT_L)] = ("compose_prologue", -(-KT_L // 32))
+    out[("K6c", KT_L)] = ("gcd_bridge", -(-KT_L // 32))
+    out[("K6d",)] = ("gcd2_merge", None)
+    out[("K6e",)] = ("c3_operands", None)
     return out
 
 
 def kernel_instance(mangled: str):
-    """(kernel, template arguments) of a K5m, K5d, K4, KT, K7, K6a or K6b
-    instance's mangled name, else None."""
+    """(kernel, template arguments) of a K5m, K5d, K4, KT, K7 or K6a-K6e
+    instance's mangled name (K6d and K6e: no template), else None."""
     m = re.search(r"(mag_mul|divexact_odd|redc_mod|reduce_exact|lehmer_euclid_walk|"
-                  r"lehmer_euclid_finish|canon_sm|compose_prologue)_kernelI((?:Li\d+E)+)E",
-                  mangled)
+                  r"lehmer_euclid_finish|canon_sm|compose_prologue|gcd_bridge|gcd2_merge|"
+                  r"c3_operands)_kernel(?:I((?:Li\d+E)+)E)?", mangled)
     if not m:
         return None
-    return m.group(1), tuple(int(v) for v in re.findall(r"Li(\d+)E", m.group(2)))
+    return m.group(1), tuple(int(v) for v in re.findall(r"Li(\d+)E", m.group(2) or ""))
 
 
 def ptxas_instances(text: str) -> dict:
     """{(kernel, template arguments): {regs, stack, stores, loads}} of K5m's,
-    K5d's, K4's, KT's, K7's, K6a's and K6b's instances in nvcc's -Xptxas=-v
+    K5d's, K4's, KT's, K7's and K6a's-K6e's instances in nvcc's -Xptxas=-v
     report."""
     out, cur = {}, None
     for ln in text.splitlines():
@@ -2364,22 +2628,25 @@ def sass_counts(body: str) -> dict:
 
 
 def check_spills(cgp) -> None:
-    """Every K7, K6a and K6b instance in the build's ptxas report must
-    spill nothing."""
+    """Every K7 and K6a-K6e instance in the build's ptxas report must spill
+    nothing."""
     inst = {k: p for k, p in ptxas_instances(cgp.BUILD_INFO["log"]).items()
-            if k[0].startswith("lehmer_euclid") or k[0] in ("canon_sm", "compose_prologue")}
+            if k[0].startswith("lehmer_euclid") or k[0] in K6_KERNELS}
     if not inst:
-        log("ptxas: no K7, K6a or K6b instance in the report (libraries already built)")
+        log("ptxas: no K7 or K6a-K6e instance in the report (libraries already built)")
         return
+    missing = [n for n in K6_KERNELS if not any(k[0] == n for k in inst)]
+    if missing:
+        fail(f"ptxas: no instance of {missing} in the build's report")
     bad = [f"{k[0]}<{', '.join(map(str, k[1]))}>" for k, p in sorted(inst.items())
            if p.get("stores") or p.get("loads")]
     if bad:
-        fail(f"K7 / K6a / K6b instances spill: {bad}")
+        fail(f"K7 / K6a-K6e instances spill: {bad}")
     for (kname, args), p in sorted(inst.items()):
-        if kname in ("canon_sm", "compose_prologue"):
+        if kname in K6_KERNELS:
             log(f"ptxas {kname}_kernel<{', '.join(map(str, args))}>: {p.get('regs')} "
                 f"registers, no spill")
-    log(f"ptxas: none of the {len(inst)} K7, K6a and K6b instances spills")
+    log(f"ptxas: none of the {len(inst)} K7 and K6a-K6e instances spills")
 
 
 def check_sass(cgp) -> None:
@@ -2462,9 +2729,12 @@ def main() -> int:
     ncg = f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True)
     k7 = {B: check_k7(torch, cgp, ncg, lb, gmp, hsm, bform_from_forms, rng, B, k7_clock)
           for B in (KERNEL_B, RAGGED_B, SMALL_B)}
-    own = random.Random(SEED + 13)  # K6a's and K6b's own: rng reaches what follows as before
+    own = random.Random(SEED + 13)  # K6a-K6e's own: rng reaches what follows as before
     k6a = {B: check_k6a(torch, cgp, lb, own, B) for B in TABLE_B}
-    k6b = {B: check_k6b(torch, cgp, cg, gmp, hsm, port, own, B) for B in TABLE_B}
+    k6b = {B: check_k6b(torch, cgp, lb, cg, gmp, hsm, port, own, B) for B in TABLE_B}
+    k6c = {B: check_k6c(torch, cgp, lb, own, cg, B) for B in TABLE_B}
+    k6d = {B: check_k6d(torch, cgp, lb, own, cg, B) for B in TABLE_B}
+    k6e = {B: check_k6e(torch, cgp, lb, own, cg, B) for B in TABLE_B}
     log(f"kernel checks: {time.perf_counter() - t:.1f} s")
 
     from cofhe_tpu_torch.ops import graphs
@@ -2554,7 +2824,11 @@ def main() -> int:
                              "cofhe_tpu/ops/rl.py:347"),
            "canon_sm": ("cofhe_tpu_torch/csrc/canon_sm.cu", "cofhe_tpu/ops/limb.py:113"),
            "compose_prologue": ("cofhe_tpu_torch/csrc/compose_prologue.cu",
-                                "cofhe_tpu/ops/forms2.py:478")}
+                                "cofhe_tpu/ops/forms2.py:478"),
+           "gcd_bridge": ("cofhe_tpu_torch/csrc/gcd_bridge.cu", "cofhe_tpu/ops/forms2.py:536"),
+           "gcd2_merge": ("cofhe_tpu_torch/csrc/gcd2_merge.cu", "cofhe_tpu/ops/forms2.py:588"),
+           "c3_operands": ("cofhe_tpu_torch/csrc/c3_operands.cu",
+                           "cofhe_tpu/ops/forms2.py:638")}
     kernels = [
         entry("xgcd_coeff_g", *src["xgcd_coeff_g"], k1[(88, False, KERNEL_B)]),
         entry("mod_topdown", *src["mod_topdown"], k2[KERNEL_B]),
@@ -2572,6 +2846,11 @@ def main() -> int:
         # pairs (every recorded call has its own table row below)
         entry("canon_sm", *src["canon_sm"], k6a[KERNEL_B][KT_L]),
         entry("compose_prologue", *src["compose_prologue"], k6b[KERNEL_B]),
+        # the gcd bridge, merge and c3's operands at compose2's widths on
+        # 16384 synthetic lanes (the recorded calls have their rows below)
+        entry("gcd_bridge", *src["gcd_bridge"], k6c[KERNEL_B]),
+        entry("gcd2_merge", *src["gcd2_merge"], k6d[KERNEL_B]),
+        entry("c3_operands", *src["c3_operands"], k6e[KERNEL_B]),
     ]
     for r in table:
         base_name = r["name"].split("[")[0].split("@")[0]

@@ -15,7 +15,17 @@
 //
 // and writes a1, b1s, b1m, c1, a2, b2s, b2m, c2 (the forms' rows at width
 // L), ss, sm (s's sign and |s| >> 1 at Lh), dds, ddm and the identity
-// masks id1, id2 (bool), all as the torch code makes them. The cut of b1,
+// masks id1, id2 (bool), all as the torch code makes them. With a narrow
+// width Lxn < L it also writes the first gcd's operands
+// (cofhe_tpu/ops/forms2.py:522-533; forms2.first_gcd_operands):
+//
+//   fx         = bitlen(a2) <= nb and bitlen(a1) <= nb,  nb = 16 Lxn - 32
+//   a2_n, a1_n = (a2, a1) cut to Lxn limbs where fx, else (1, 0)
+//   a2_w, a1_w = (1, 0) at L limbs where fx, else (a2, a1)
+//
+// where, on canonical rows, bitlen <= 16 (Lxn - 2) is no nonzero limb
+// from Lxn - 2 on: one ballot over both a rows, which the kernel holds in
+// registers as it writes them. The cut of b1,
 // b2 to Lh limbs is lb.resize's, on the guarantee that the b of a reduced
 // form fits Lh; the kernel checks no more than the torch code does.
 //
@@ -27,9 +37,10 @@
 // (wl::canonicalize_rows with both rows side by side) and wl::shr_bits.
 //
 // What bounds it on this card: its bytes at 16384 rows (the six form rows
-// written at width L, the picked rows read once); at the main path's
-// 128-256 rows one warp's latency through the compare and the
-// canonicalization, where the torch ops took ~75 launches.
+// and, with Lxn, the first gcd's four operand rows written at width L or
+// Lxn, the picked rows read once); at the main path's 128-256 rows one
+// warp's latency through the compare and the canonicalization, where the
+// torch ops took ~75 launches, and the first gcd's operands ~20 more.
 
 #include "warp_limbs.cuh"
 
@@ -60,7 +71,12 @@ struct Params {
   int* ddm;
   unsigned char* id1;
   unsigned char* id2;
-  int B, L, Lh;
+  unsigned char* fx;  // the first gcd's operands, written where Lxn > 0
+  int* a2n;
+  int* a1n;
+  int* a2w;
+  int* a1w;
+  int B, L, Lh, Lxn;
 };
 
 // CG._is_one of a canonical row: limb 0 is 1 and the limbs sum to 1
@@ -102,6 +118,34 @@ __device__ __forceinline__ const int* form_row(const Params& p, bool right,
     default: r = pick(p.f1.bs, p.f2.bs, p.h.bs, p.h2.bs, right, sub); break;
   }
   return sub ? r : r + off;
+}
+
+// forms2.first_gcd_operands of the canonical rows a1 (x1) and a2 (x2) of
+// batch row b: fx from one ballot, then the narrow and wide rows
+template <int NPT>
+__device__ __forceinline__ void first_gcd_operands(const Params& p,
+                                                   const int (&x1)[NPT],
+                                                   const int (&x2)[NPT], int b,
+                                                   int lane) {
+  const int L = p.L, Ln = p.Lxn, off = b * L, noff = b * Ln;
+  bool wide = false;
+#pragma unroll
+  for (int j = 0; j < NPT; j++)
+    wide |= lane * NPT + j >= Ln - 2 && (x1[j] | x2[j]) != 0;
+  const bool fx = !__any_sync(WL_FULL, wide);
+  if (lane == 0) p.fx[b] = fx;
+#pragma unroll
+  for (int j = 0; j < NPT; j++) {
+    const int i = lane * NPT + j, one = i == 0;
+    if (i < Ln) {
+      p.a2n[noff + i] = fx ? x2[j] : one;
+      p.a1n[noff + i] = fx ? x1[j] : 0;
+    }
+    if (i < L) {
+      p.a2w[off + i] = fx ? one : x2[j];
+      p.a1w[off + i] = fx ? 0 : x1[j];
+    }
+  }
 }
 
 template <int NPT>
@@ -161,14 +205,19 @@ compose_prologue_kernel(const Params p) {
   wl::store_row<NPT>(v[1], p.ddm + hoff, Lh, lane);
   wl::shr_bits<NPT>(v[0], v[1], 1, lane);
   wl::store_row<NPT>(v[1], p.sm + hoff, Lh, lane);
-  // the forms' rows, each read once where the selects pick it
+  // the forms' rows, each read once where the selects pick it; a1 and a2
+  // last, both held for the first gcd's operands
   const int *a2 = form_row(p, r2, sub, 0, off), *c2 = form_row(p, r2, sub, 2, off);
-  copy_row<NPT>(p.a1 + off, form_row(p, r1, sub, 0, off), L, lane);
   copy_row<NPT>(p.b1 + off, form_row(p, r1, sub, 1, off), L, lane);
   copy_row<NPT>(p.c1 + off, form_row(p, r1, sub, 2, off), L, lane);
-  copy_row<NPT>(p.a2 + off, even ? c2 : a2, L, lane);
   copy_row<NPT>(p.b2 + off, form_row(p, r2, sub, 1, off), L, lane);
   copy_row<NPT>(p.c2 + off, even ? a2 : c2, L, lane);
+  int x1[NPT], x2[NPT];
+  wl::load_row<NPT>(x1, form_row(p, r1, sub, 0, off), L, lane);
+  wl::load_row<NPT>(x2, even ? c2 : a2, L, lane);
+  wl::store_row<NPT>(x1, p.a1 + off, L, lane);
+  wl::store_row<NPT>(x2, p.a2 + off, L, lane);
+  if (p.Lxn > 0) first_gcd_operands<NPT>(p, x1, x2, b, lane);
 }
 
 template <int NPT>
@@ -184,13 +233,15 @@ void launch(const Params& p, cudaStream_t s) {
 // int32 signs) and of h and h^2 (one row each, L limbs, and one sign);
 // out: 14 device pointers, a1, b1s, b1m, c1, a2, b2s, b2m, c2 ((B, L) and
 // (B,) int32), ss, sm, dds, ddm ((B,) and (B, Lh) int32) and id1, id2
-// ((B,) bool). 1 <= Lh <= L <= 288 and B L < 2^31. Returns
-// cudaGetLastError() after the launch; cudaErrorInvalidValue for sizes
-// outside that.
+// ((B,) bool), and with Lxn > 0 five more, fx ((B,) bool), a2_n, a1_n
+// ((B, Lxn) int32), a2_w, a1_w ((B, L) int32). 1 <= Lh <= L <= 288, Lxn
+// 0 or in [2, L), and B L < 2^31. Returns cudaGetLastError() after the
+// launch; cudaErrorInvalidValue for sizes outside that.
 extern "C" int compose_prologue_launch(void* const* in, void* const* out, int B,
-                                       int L, int Lh, void* stream) {
+                                       int L, int Lh, int Lxn, void* stream) {
   if (B <= 0) return 0;
-  if (L < 1 || L > 288 || Lh < 1 || Lh > L || (long long)B * L >= (1LL << 31))
+  if (L < 1 || L > 288 || Lh < 1 || Lh > L || (long long)B * L >= (1LL << 31) ||
+      Lxn < 0 || Lxn == 1 || Lxn >= L)
     return (int)cudaErrorInvalidValue;
   Params p{};
   Form* forms[4] = {&p.f1, &p.f2, &p.h, &p.h2};
@@ -205,9 +256,15 @@ extern "C" int compose_prologue_launch(void* const* in, void* const* out, int B,
   for (int i = 0; i < 12; i++) *rows[i] = (int*)out[i];
   p.id1 = (unsigned char*)out[12];
   p.id2 = (unsigned char*)out[13];
+  if (Lxn > 0) {
+    p.fx = (unsigned char*)out[14];
+    int** first[4] = {&p.a2n, &p.a1n, &p.a2w, &p.a1w};
+    for (int i = 0; i < 4; i++) *first[i] = (int*)out[15 + i];
+  }
   p.B = B;
   p.L = L;
   p.Lh = Lh;
+  p.Lxn = Lxn;
   cudaStream_t s = (cudaStream_t)stream;
   switch ((L + 31) / 32) {
 #define K6B_CASE(n)   \

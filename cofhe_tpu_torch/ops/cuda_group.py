@@ -1,7 +1,7 @@
 """Hopper kernels for the class-group hot loops (counterpart of
 cofhe_tpu/ops/pallas_group.py).
 
-Ten kernels, CUDA C++ for sm_90a under cofhe_tpu_torch/csrc/, built with
+Thirteen kernels, CUDA C++ for sm_90a under cofhe_tpu_torch/csrc/, built with
 nvcc into plain-C shared libraries at first use and bound with ctypes. Each
 gives one warp to one batch row (K5m up to four at small batches); the
 source notes say more.
@@ -65,8 +65,19 @@ source notes say more.
   `canon_sm_plain` (the sum in torch ops, then limb.canonicalize_fast).
 * K6b `compose_prologue` (csrc/compose_prologue.cu) replaces compose2's
   prologue up to s and dd (the identity masks and substitution, the
-  swap, rotate_to_odd, s and dd) in one launch; its plain version is
+  swap, rotate_to_odd, s and dd) and, where the narrow width Lxn is below
+  L, the first gcd's operands, in one launch; its plain version is
   forms2.compose2_prologue_plain.
+* K6c `gcd_bridge` (csrc/gcd_bridge.cu) replaces the selects between
+  compose2's two gcds: d1 and beta merged from the first gcd's two
+  passes, fits8, rare and the second gcd's divisors; its plain version is
+  forms2.gcd_bridge_plain.
+* K6d `gcd2_merge` (csrc/gcd2_merge.cu) replaces the merge of the second
+  gcd's two pipelines into g and eta0; its plain version is
+  forms2.gcd2_merge_plain.
+* K6e `c3_operands` (csrc/c3_operands.cu) replaces mag_v2 and the two
+  dynamic shifts before c3's exact quotient; its plain version is
+  forms2.c3_operands_plain.
 
 The main path runs 97% of K2's and K3's launches at 128-256 lanes, where a
 kernel's time is the latency of one warp's loop rather than the card's
@@ -76,7 +87,8 @@ rl.mod_topdown and forms2.grouped_rho_loop, stay as references.
 
 The dispatchers `xgcd_coeff_g`, `mod_topdown`, `reduce2_grouped_loop`,
 `reduce_exact`, `mag_mul`, `mag_divexact_odd`, `redc_mod`,
-`lehmer_euclid`, `canon_sm` and `compose_prologue` are what
+`lehmer_euclid`, `canon_sm`, `compose_prologue`, `gcd_bridge`,
+`gcd2_merge` and `c3_operands` are what
 ops/forms2.py (and limb.mag_mul / mag_divexact_odd) call: a CPU tensor
 goes to the plain version (`plain_route`), a CUDA tensor to the kernel,
 and anything else raises;
@@ -84,8 +96,10 @@ there is no fallback from the kernel to the plain version. Each `*_cuda`
 wrapper adds one to `LAUNCHES[name]` and to `LAUNCHES_BY_KEY[(name,
 width, extra, batch)]` (extra: nbits or Lm, the operand widths "LaxLb" of
 a product or "LxxLy" of a quotient, d's width for a REDC, the group cap
-of a Lehmer walk, the term widths of a K6a sum (`canon_sm_key`), Lh for
-the prologue, else 0) where it launches its kernel and nowhere else.
+of a Lehmer walk, the term widths of a K6a sum (`canon_sm_key`), Lh (and
+Lxn) for the prologue, Lxn and Lh for the gcd bridge, the width-8 rows'
+width for the merge, a3's width for c3's operands, else 0) where it
+launches its kernel and nowhere else.
 While a thread captures a CUDA graph (`capturing_launches`, ops/graphs.py) its
 launches are recorded into the graph's key list instead, and each replay
 of the graph counts them (`count_launches`): the kernels run once a replay.
@@ -128,7 +142,10 @@ _ARGTYPES = {
     "lehmer_euclid": [_P] * 13 + [_I] * 4 + [_P],
     # host arrays of device pointers and of ints, then ints
     "canon_sm": [_P, _P] + [_I] * 5 + [_P],
-    "compose_prologue": [_P, _P] + [_I] * 3 + [_P],
+    "compose_prologue": [_P, _P] + [_I] * 4 + [_P],
+    "gcd_bridge": [_P, _P] + [_I] * 4 + [_P],
+    "gcd2_merge": [_P, _P] + [_I] * 3 + [_P],
+    "c3_operands": [_P] * 4 + [_I] * 3 + [_P],
 }
 KERNELS = tuple(_ARGTYPES)
 
@@ -716,16 +733,28 @@ def canon_sm(terms, W: int, shr: int = 0, W_shr: int | None = None, terms2=None)
 # -------------------------------------------------- K6b: compose2's prologue
 
 
-def compose_prologue_plain(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int):
+def compose_prologue_plain(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int,
+                           Lxn: int | None = None):
     from .forms2 import compose2_prologue_plain  # forms2 imports this module
 
-    return compose2_prologue_plain(F1, F2, h, h2, Lh)
+    return compose2_prologue_plain(F1, F2, h, h2, Lh, Lxn)
 
 
-def compose_prologue_cuda(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int):
+def _bool_rows(name: str, B: int, dev, *masks) -> None:
+    for m in masks:
+        if m.shape != (B,) or m.dtype != torch.bool or m.device != dev \
+                or not m.is_contiguous():
+            raise ValueError(f"{name}: masks must be contiguous (B,) bool tensors on "
+                             "the rows' device")
+
+
+def compose_prologue_cuda(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int,
+                          Lxn: int | None = None):
     """K6b on the card: compose_prologue_plain's (a1, b1s, b1m, c1, a2,
     b2s, b2m, c2, ss, sm, dds, ddm, id1, id2) of canonical (B, L) forms F1,
-    F2 and the substitute forms h, h2 (one row each)."""
+    F2 and the substitute forms h, h2 (one row each), and with a narrow
+    width Lxn < L the first gcd's (fx, a2_n, a1_n, a2_w, a1_w) after
+    them."""
     B, L = F1.a.shape[0], F1.a.shape[-1]
     dev = F1.a.device
     ins = []
@@ -745,6 +774,9 @@ def compose_prologue_cuda(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int):
                          f"B L < 2^31, got B={B}, L={L}, Lh={Lh}")
     if any(x.device != dev or x.dtype != torch.int32 for x in ins) or dev.type != "cuda":
         raise ValueError("compose_prologue: int32 tensors on one CUDA device required")
+    narrow = Lxn is not None and Lxn < L
+    if narrow and Lxn < 2:
+        raise ValueError(f"compose_prologue: the narrow width Lxn must be >= 2, got {Lxn}")
 
     def rows(n):
         return torch.empty((B, n), dtype=torch.int32, device=dev)
@@ -752,18 +784,147 @@ def compose_prologue_cuda(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int):
     def signs():
         return torch.empty(B, dtype=torch.int32, device=dev)
 
+    def masks():
+        return torch.empty(B, dtype=torch.bool, device=dev)
+
     outs = (rows(L), signs(), rows(L), rows(L), rows(L), signs(), rows(L), rows(L),
-            signs(), rows(Lh), signs(), rows(Lh),
-            torch.empty(B, dtype=torch.bool, device=dev),
-            torch.empty(B, dtype=torch.bool, device=dev))
-    _launch(("compose_prologue", L, Lh, B), F1.a,
+            signs(), rows(Lh), signs(), rows(Lh), masks(), masks())
+    if narrow:
+        outs += (masks(), rows(Lxn), rows(Lxn), rows(L), rows(L))
+    _launch(("compose_prologue", L, f"{Lh},Lxn={Lxn}" if narrow else Lh, B), F1.a,
             (ctypes.c_void_p * 16)(*(x.data_ptr() for x in ins)),
-            (ctypes.c_void_p * 14)(*(x.data_ptr() for x in outs)), B, L, Lh)
+            (ctypes.c_void_p * len(outs))(*(x.data_ptr() for x in outs)), B, L, Lh,
+            Lxn if narrow else 0)
     return outs
 
 
-def compose_prologue(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int):
+def compose_prologue(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int,
+                     Lxn: int | None = None):
     """Dispatcher: plain version for CPU tensors, K6b for CUDA tensors."""
     if plain_route(F1.a):
-        return compose_prologue_plain(F1, F2, h, h2, Lh)
-    return compose_prologue_cuda(F1, F2, h, h2, Lh)
+        return compose_prologue_plain(F1, F2, h, h2, Lh, Lxn)
+    return compose_prologue_cuda(F1, F2, h, h2, Lh, Lxn)
+
+
+# ------------------------------------- K6c: from the first gcd to the second
+
+
+def gcd_bridge_plain(d1_w, beta_w, id1, id2, Lh: int, narrow=None):
+    from .forms2 import gcd_bridge_plain  # forms2 imports this module
+
+    return gcd_bridge_plain(d1_w, beta_w, id1, id2, Lh, narrow)
+
+
+def gcd_bridge_cuda(d1_w, beta_w, id1, id2, Lh: int, narrow=None):
+    """K6c on the card: gcd_bridge_plain's (d1, beta, fits8, rare, d1_8,
+    d1_8 at Lh, d1h) of the full-width pass's canonical (B, L) d1_w,
+    beta_w, the (B,) bool identity masks and, with `narrow` = (d1_n,
+    beta_n, fx), the narrow pass's (B, Lxn) rows and its (B,) bool mask.
+    Without it, d1 and beta are d1_w and beta_w themselves."""
+    _check("gcd_bridge", d1_w, beta_w)
+    B, L = d1_w.shape
+    dev = d1_w.device
+    if beta_w.shape != (B, L):
+        raise ValueError("gcd_bridge: d1_w and beta_w must share one (B, L) shape")
+    if not 8 <= Lh <= L <= MAX_LIMBS:
+        raise ValueError(f"gcd_bridge: need 8 <= Lh <= L <= {MAX_LIMBS}, got L={L}, Lh={Lh}")
+    _bool_rows("gcd_bridge", B, dev, id1, id2)
+    ins = [d1_w, beta_w, id1, id2]
+    Lxn = 0
+    if narrow is not None:
+        d1_n, beta_n, fx = narrow
+        _check("gcd_bridge", d1_w, d1_n, beta_n)
+        Lxn = d1_n.shape[1]
+        if d1_n.shape != (B, Lxn) or beta_n.shape != (B, Lxn) or Lxn > L:
+            raise ValueError("gcd_bridge: d1_n and beta_n must share one (B, Lxn) shape, "
+                             "Lxn <= L")
+        _bool_rows("gcd_bridge", B, dev, fx)
+        ins += [d1_n, beta_n, fx]
+
+    def rows(n):
+        return torch.empty((B, n), dtype=torch.int32, device=dev)
+
+    outs = [rows(L), rows(L)] if narrow is not None else [None, None]
+    outs += [torch.empty(B, dtype=torch.bool, device=dev),
+             torch.empty(B, dtype=torch.bool, device=dev), rows(8), rows(Lh), rows(Lh)]
+    ptrs = [None if x is None else x.data_ptr() for x in ins + [None] * (7 - len(ins))]
+    _launch(("gcd_bridge", L, f"Lxn={Lxn},Lh={Lh}", B), d1_w, (ctypes.c_void_p * 7)(*ptrs),
+            (ctypes.c_void_p * 7)(*(None if x is None else x.data_ptr() for x in outs)),
+            B, L, Lxn, Lh)
+    if narrow is None:
+        outs[:2] = [d1_w, beta_w]
+    return tuple(outs)
+
+
+def gcd_bridge(d1_w, beta_w, id1, id2, Lh: int, narrow=None):
+    """Dispatcher: plain version for CPU tensors, K6c for CUDA tensors."""
+    if plain_route(d1_w):
+        return gcd_bridge_plain(d1_w, beta_w, id1, id2, Lh, narrow)
+    return gcd_bridge_cuda(d1_w, beta_w, id1, id2, Lh, narrow)
+
+
+# ----------------------------------- K6d: the second gcd's pipelines merged
+
+
+def gcd2_merge_plain(g8, eta0_8, gF, eta0F, fits8):
+    from .forms2 import gcd2_merge_plain  # forms2 imports this module
+
+    return gcd2_merge_plain(g8, eta0_8, gF, eta0F, fits8)
+
+
+def gcd2_merge_cuda(g8, eta0_8, gF, eta0F, fits8):
+    """K6d on the card: gcd2_merge_plain's (g, eta0) at Lh limbs of the
+    width-8 pipeline's (B, W8) g8, eta0_8, the rare pipeline's (B, Lh) gF,
+    eta0F and the (B,) bool fits8, W8 <= Lh."""
+    _check("gcd2_merge", g8, eta0_8, gF, eta0F)
+    B, W8 = g8.shape
+    Lh = gF.shape[1]
+    if eta0_8.shape != (B, W8) or gF.shape != (B, Lh) or eta0F.shape != (B, Lh) \
+            or not 1 <= W8 <= Lh <= MAX_LIMBS:
+        raise ValueError("gcd2_merge: (B, W8) g8, eta0_8 and (B, Lh) gF, eta0F "
+                         f"required, 1 <= W8 <= Lh <= {MAX_LIMBS}")
+    _bool_rows("gcd2_merge", B, g8.device, fits8)
+    g, eta0 = torch.empty_like(gF), torch.empty_like(eta0F)
+    ins = (g8, eta0_8, gF, eta0F, fits8)
+    _launch(("gcd2_merge", Lh, W8, B), g8, (ctypes.c_void_p * 5)(*(x.data_ptr() for x in ins)),
+            (ctypes.c_void_p * 2)(g.data_ptr(), eta0.data_ptr()), B, W8, Lh)
+    return g, eta0
+
+
+def gcd2_merge(g8, eta0_8, gF, eta0F, fits8):
+    """Dispatcher: plain version for CPU tensors, K6d for CUDA tensors."""
+    if plain_route(g8):
+        return gcd2_merge_plain(g8, eta0_8, gF, eta0F, fits8)
+    return gcd2_merge_cuda(g8, eta0_8, gF, eta0F, fits8)
+
+
+# --------------------------------------------------- K6e: c3's operands
+
+
+def c3_operands_plain(a3, csum):
+    from .forms2 import c3_operands_plain  # forms2 imports this module
+
+    return c3_operands_plain(a3, csum)
+
+
+def c3_operands_cuda(a3, csum):
+    """K6e on the card: c3_operands_plain's (csum >> min(e, 16 Lm - 1),
+    a3 >> e at Lm limbs), e = v2(a3), of canonical (B, L) a3 and (B, Lm)
+    csum."""
+    _check("c3_operands", a3, csum)
+    B, L = a3.shape
+    Lm = csum.shape[1]
+    if csum.shape[0] != B or not 1 <= L <= MAX_LIMBS or not 1 <= Lm <= MAX_LIMBS:
+        raise ValueError(f"c3_operands: (B, L) a3 and (B, Lm) csum required, L and Lm "
+                         f"in [1, {MAX_LIMBS}]")
+    csum_sh, a3_odd = torch.empty_like(csum), torch.empty_like(csum)
+    _launch(("c3_operands", Lm, L, B), a3, a3.data_ptr(), csum.data_ptr(),
+            csum_sh.data_ptr(), a3_odd.data_ptr(), B, L, Lm)
+    return csum_sh, a3_odd
+
+
+def c3_operands(a3, csum):
+    """Dispatcher: plain version for CPU tensors, K6e for CUDA tensors."""
+    if plain_route(a3):
+        return c3_operands_plain(a3, csum)
+    return c3_operands_cuda(a3, csum)

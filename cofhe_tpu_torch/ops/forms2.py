@@ -26,12 +26,14 @@ Every `xgcd_coeff_g`, `mod_topdown`, grouped-rho loop, exact tail,
 product (`lb.mag_mul`), exact quotient (`lb.mag_divexact_odd`), REDC
 (`CG._redc_mod`), Lehmer walk, signed sum canonicalized (xi's numerator,
 2 m2, b3 with b3 / 2, csum, and the NUCOMP tail's cofactors and form
-values: `cuda_group.canon_sm`) and the prologue up to s and dd
-(`CG.compose2_prologue`) goes through the dispatchers of
-ops/cuda_group.py: on a CUDA tensor they launch the Hopper kernels (K1,
-K2, K3, KT, K5m, K5d, K4, K7, K6a, K6b), on a CPU tensor they run the
-plain torch versions. On the card no 2-adic inverse runs inside
-compose2: K5d and K4 take their own 16-bit inverses.
+values: `cuda_group.canon_sm`), the prologue up to s and dd with the
+first gcd's operands (`CG.compose2_prologue`), the selects between the
+two gcds (`cuda_group.gcd_bridge`), the second gcd's merge
+(`cuda_group.gcd2_merge`) and c3's operands (`cuda_group.c3_operands`)
+goes through the dispatchers of ops/cuda_group.py: on a CUDA tensor they
+launch the Hopper kernels (K1, K2, K3, KT, K5m, K5d, K4, K7, K6a-K6e), on
+a CPU tensor they run the plain torch versions. On the card no 2-adic
+inverse runs inside compose2: K5d and K4 take their own 16-bit inverses.
 Reduced forms are unique, so the outputs equal the JAX package's and the
 pure-Python oracle's bit for bit.
 
@@ -305,11 +307,14 @@ def grouped_rho_loop_wide(a_red, b_red, c_red, dD_mant: float, dD_top: int,
     return a, b, c
 
 
-def compose2_prologue_plain(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int):
+def compose2_prologue_plain(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int,
+                            Lxn: int | None = None):
     """compose2's prologue in torch ops (plain version of K6b, which
     CG.compose2_prologue dispatches): the identity masks, h / h^2 on the
     lanes where either operand is the identity, the swap to a1 <= a2, F2
-    rotated odd, s = (b1 + b2)/2 and dd = b2 - b1 on Lh limbs."""
+    rotated odd, s = (b1 + b2)/2 and dd = b2 - b1 on Lh limbs; with a
+    narrow width Lxn below the forms' L, the first gcd's operands after
+    them (first_gcd_operands)."""
     B = F1.a.shape[0]
 
     id1 = CG._is_one(F1.a)
@@ -331,7 +336,71 @@ def compose2_prologue_plain(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int):
     ss, sm = lb.sm_add((b1s, b1h), (b2s, b2h))
     sm = lb.mag_shr_bits(sm, 1)
     dds, ddm = lb.sm_sub((b2s, b2h), (b1s, b1h))
-    return a1, b1s, b1m, c1, a2, b2s, b2m, c2, ss, sm, dds, ddm, id1, id2
+    out = (a1, b1s, b1m, c1, a2, b2s, b2m, c2, ss, sm, dds, ddm, id1, id2)
+    if Lxn is None or Lxn >= a1.shape[-1]:
+        return out
+    return out + first_gcd_operands(a1, a2, Lxn)
+
+
+def first_gcd_operands(a1, a2, Lxn: int):
+    """The first gcd's operands in torch ops (K6b writes them beside the
+    prologue's outputs): fx, whether both a's fit nb = 16 Lxn - 32 bits,
+    and the rows of the narrow pass at Lxn limbs (a2, a1 where fx, else
+    1 and 0) and of the full-width pass (1 and 0 where fx, else a2, a1)."""
+    nb = 16 * Lxn - 32
+    fx = (lb.mag_bitlen(a2) <= nb) & (lb.mag_bitlen(a1) <= nb)
+    f = fx[..., None]
+    a2_n = torch.where(f, a2[..., :Lxn], _one_limbs_like(a2, Lxn))
+    a1_n = torch.where(f, a1[..., :Lxn], 0)
+    a2_w = torch.where(f, _one_limbs_like(a2, a2.shape[-1]), a2)
+    a1_w = torch.where(f, 0, a1)
+    return fx, a2_n, a1_n, a2_w, a1_w
+
+
+def gcd_bridge_plain(d1_w, beta_w, id1, id2, Lh: int, narrow=None):
+    """From the first gcd to the second in torch ops (plain version of
+    K6c): d1 and beta, the narrow pass's (d1_n, beta_n at Lxn limbs) where
+    fx and the full-width pass's (d1_w, beta_w) elsewhere, given `narrow`
+    = (d1_n, beta_n, fx), else the full-width pass's alone; fits8 =
+    bitlen(d1) <= 120; rare = ~fits8 on lanes with no identity; d1_8 = d1
+    cut to 8 limbs where fits8, else 1, also zero-extended to Lh; d1h = d1
+    at Lh on the rare lanes, else 1. Returns (d1, beta, fits8, rare, d1_8,
+    d1_8 at Lh, d1h)."""
+    L = d1_w.shape[-1]
+    if narrow is None:
+        d1, beta = d1_w, beta_w
+    else:
+        d1_n, beta_n, fx = narrow
+        d1 = torch.where(fx[..., None], lb.resize(d1_n, L), d1_w)
+        beta = torch.where(fx[..., None], lb.resize(beta_n, L), beta_w)
+    fits8 = lb.mag_bitlen(d1) <= 120
+    one8 = _one_limbs_like(d1, 8)
+    d1_8 = torch.where(fits8[..., None], d1[..., :8], one8)
+    rare = ~fits8 & ~(id1 | id2)
+    d1h = torch.where(rare[..., None], lb.resize(d1, Lh), lb.resize(one8, Lh))
+    return d1, beta, fits8, rare, d1_8, lb.resize(d1_8, Lh), d1h
+
+
+def gcd2_merge_plain(g8, eta0_8, gF, eta0F, fits8):
+    """The second gcd's two pipelines merged in torch ops (plain version
+    of K6d): g and eta0 at gF's width Lh, the width-8 pipeline's (g8,
+    eta0_8, zero-extended) where fits8, else the rare pipeline's."""
+    Lh = gF.shape[-1]
+    f = fits8[..., None]
+    g = torch.where(f, lb.resize(g8, Lh), lb.resize(gF, Lh))
+    eta0 = torch.where(f, lb.resize(eta0_8, Lh), eta0F)
+    return g, eta0
+
+
+def c3_operands_plain(a3, csum):
+    """c3's operands in torch ops (plain version of K6e): with e = v2(a3)
+    (16 L for a zero a3), csum >> min(e, 16 Lm - 1) and a3 >> e cut or
+    zero-extended to csum's width Lm."""
+    Lm = csum.shape[-1]
+    e = lb.mag_v2(a3)
+    a3_odd = lb.mag_shr_bits_dyn(a3, e)
+    csum_sh = lb.mag_shr_bits_dyn(csum, e.clamp(max=16 * Lm - 1))
+    return csum_sh, lb.resize(a3_odd, Lm)
 
 
 def _one_limbs_like(x, L: int):
@@ -516,9 +585,10 @@ class CG:
         """The identity masks, the substitution of h / h^2, the swap to
         a1 <= a2, F2 rotated odd, s = (b1 + b2)/2 and dd = b2 - b1:
         (a1, b1s, b1m, c1, a2, b2s, b2m, c2, ss, sm, dds, ddm, id1, id2),
-        one launch of K6b on the card (compose2_prologue_plain on the
-        CPU)."""
-        return cuda_group.compose_prologue(F1, F2, self.h, self.h2, self.Lh)
+        then, where the narrow width Lxn is below L, the first gcd's
+        operands (fx, a2_n, a1_n, a2_w, a1_w); one launch of K6b on the
+        card (compose2_prologue_plain on the CPU)."""
+        return cuda_group.compose_prologue(F1, F2, self.h, self.h2, self.Lh, self.Lxn)
 
     def compose2_unreduced(self, F1: BForm, F2: BForm):
         """Everything before the reduction: the unreduced composed
@@ -527,36 +597,30 @@ class CG:
         function's order. It reads no value on the host."""
         L, Lh = self.L, self.Lh
         (a1, b1s, b1m, c1, a2, b2s, b2m, c2, ss, sm, dds, ddm, id1,
-         id2) = self.compose2_prologue(F1, F2)
-        some_id = id1 | id2
+         id2, *first) = self.compose2_prologue(F1, F2)
 
         # first gcd: d1 = gcd(a2, a1), beta = a1-coefficient mod a2; the
         # narrow pass takes every lane whose operands fit 16*Lxn-32 bits,
         # the full-width pass the rest (its g is 0 on every other lane, so
-        # those lanes leave its loop at once)
-        if self.Lxn < L:
-            NL = self.Lxn
-            nb = 16 * NL - 32
-            fx = ((lb.mag_bitlen(a2) <= nb) & (lb.mag_bitlen(a1) <= nb))[..., None]
-            a2_n = torch.where(fx, a2[..., :NL], _one_limbs_like(a2, NL))
-            a1_n = torch.where(fx, a1[..., :NL], 0)
-            d1_n, beta_n = cuda_group.xgcd_coeff_g(a2_n, a1_n, a2_n, nb + 16)
-            a2_w = torch.where(fx, _one_limbs_like(a2, L), a2)
-            a1_w = torch.where(fx, 0, a1)
+        # those lanes leave its loop at once); K6b gave both passes'
+        # operands
+        if first:
+            fx, a2_n, a1_n, a2_w, a1_w = first
+            d1_n, beta_n = cuda_group.xgcd_coeff_g(a2_n, a1_n, a2_n, 16 * self.Lxn - 16)
             d1_w, beta_w = cuda_group.xgcd_coeff_g(a2_w, a1_w, a2_w,
                                                    self.xgcd_nbits)
-            d1 = torch.where(fx, lb.resize(d1_n, L), d1_w)
-            beta = torch.where(fx, lb.resize(beta_n, L), beta_w)
+            narrow = (d1_n, beta_n, fx)
         else:
-            d1, beta = cuda_group.xgcd_coeff_g(a2.contiguous(), a1.contiguous(),
-                                               a2.contiguous(), self.xgcd_nbits)
+            d1_w, beta_w = cuda_group.xgcd_coeff_g(a2.contiguous(), a1.contiguous(),
+                                                   a2.contiguous(), self.xgcd_nbits)
+            narrow = None
 
         # second gcd: g = gcd(d1, |s|), eta0 in [0, d1) with
-        # eta0 * |s| ≡ g (mod d1). Width 8 when d1 < 2^120 ...
-        fits8 = lb.mag_bitlen(d1) <= 120
-        one8 = _one_limbs_like(d1, 8)
-        d1_8 = torch.where(fits8[..., None], d1[..., :8], one8)
-        rare = ~fits8 & ~some_id
+        # eta0 * |s| ≡ g (mod d1). Width 8 when d1 < 2^120 (fits8), width
+        # Lh on the rest but the identity lanes (rare); K6c merges d1 and
+        # beta and gives both pipelines' divisors
+        d1, beta, fits8, rare, d1_8, d1_8h, d1h = cuda_group.gcd_bridge(
+            d1_w, beta_w, id1, id2, Lh, narrow)
         # On the CPU one 2-adic inverse of d1 serves both REDC pipelines and
         # xi below, and one of g both quotients (d1 is odd: it divides the
         # odd a2). On the card K4 and K5d take their own 16-bit inverses,
@@ -568,8 +632,8 @@ class CG:
             one_h = _one_limbs_like(d1, Lh)
             inv8 = torch.where(fits8[..., None], inv_d1, one_h)
             invF = torch.where(rare[..., None], inv_d1, one_h)
-        rp_m = self._redc_mod(lb.resize(sm, Lh), lb.resize(d1_8, Lh), fits8,
-                              inv8)
+        # sm is |s| >> 1 at Lh limbs (the prologue's)
+        rp_m = self._redc_mod(sm, d1_8h, fits8, inv8)
         g8, eta8 = cuda_group.xgcd_coeff_g(d1_8, rp_m[..., :8].contiguous(),
                                            d1_8, 136)
         # rp carries 2^(-16 Lh): eta8 * rp ≡ g, so the same scale removal
@@ -578,16 +642,12 @@ class CG:
 
         # ... and the same pipeline at width Lh on the rare rest (its xgcd
         # leaves its loop at once when no lane needs it; its REDCs run on
-        # every lane, and the selects below drop the lanes outside `rare`)
-        d1h = torch.where(rare[..., None], lb.resize(d1, Lh),
-                          lb.resize(one8, Lh))
-        rpF_m = self._redc_mod(lb.resize(sm, Lh), d1h, rare, invF)
+        # every lane, and K6d drops the lanes outside `rare`)
+        rpF_m = self._redc_mod(sm, d1h, rare, invF)
         gF, etaF = cuda_group.xgcd_coeff_g(
             d1h, torch.where(rare[..., None], rpF_m, 0), d1h, 16 * Lh)
         eta0F = self._redc_mod(etaF, d1h, rare, invF)
-
-        g = torch.where(fits8[..., None], lb.resize(g8, Lh), lb.resize(gF, Lh))
-        eta0 = torch.where(fits8[..., None], lb.resize(eta0_8, Lh), eta0F)
+        g, eta0 = cuda_group.gcd2_merge(g8, eta0_8, gF, eta0F, fits8)
 
         # xi = (g - eta0*|s|) / d1 exactly (integer identity); |xi| <= |s|
         prod_es = lb.mag_mul(eta0, sm, L)
@@ -616,10 +676,9 @@ class CG:
                                             shr=1, W_shr=self.Lsq)
         sq = lb.mag_mul(b3h, b3h, Lm)
         _, csum = cuda_group.canon_sm([(sq, None, 1), (self.delta4_row, None, 1)], Lm)
-        e = lb.mag_v2(a3)
-        a3_odd = lb.mag_shr_bits_dyn(a3, e)
-        csum_sh = lb.mag_shr_bits_dyn(csum, e.clamp(max=16 * Lm - 1))
-        c3 = lb.mag_divexact_odd(csum_sh, lb.resize(a3_odd, Lm), L)
+        # K6e: with e = v2(a3), csum >> e and a3 >> e, both at Lm limbs
+        csum_sh, a3_odd = cuda_group.c3_operands(a3, csum)
+        c3 = lb.mag_divexact_odd(csum_sh, a3_odd, L)
         return a3, b3s, b3m, c3, a1g, m2x2, mu, id1, id2
 
     def lehmer_operands(self, a1g, m2x2, mu):

@@ -54,7 +54,8 @@ DISPATCHERS = {"xgcd_coeff_g": "xgcd_coeff_g", "mod_topdown": "mod_topdown",
                "reduce_exact": "reduce_exact", "mag_mul": "mag_mul",
                "divexact_odd": "mag_divexact_odd", "redc_mod": "redc_mod",
                "lehmer_euclid": "lehmer_euclid", "canon_sm": "canon_sm",
-               "compose_prologue": "compose_prologue"}
+               "compose_prologue": "compose_prologue", "gcd_bridge": "gcd_bridge",
+               "gcd2_merge": "gcd2_merge", "c3_operands": "c3_operands"}
 
 
 def first_tensor(x):

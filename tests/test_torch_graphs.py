@@ -12,8 +12,8 @@ against eager compose2.
   subclass whose __bool__ / item / tolist / numpy / boolean indexing
   raise, so a sync that a capture on the card would refuse shows here.
   On the card's route (no shared 2-adic inverse) it calls K5m 7 times,
-  K5d 4 times, K4 4 times, K6a 4 times, K6b once and limb.inv_pow2
-  never, and gives the JAX package's forms.
+  K5d 4 times, K4 4 times, K6a 4 times, K6b, K6c, K6d and K6e once each
+  and limb.inv_pow2 never, and gives the JAX package's forms.
 * ComposeGraph refuses a CPU device; the launch keys a capture records
   are not counted until a replay counts them.
 
@@ -145,12 +145,13 @@ def _guarded(x):
 
 KERNEL_DISPATCHERS = ("xgcd_coeff_g", "mod_topdown", "reduce2_grouped_loop",
                       "reduce_exact", "mag_mul", "mag_divexact_odd", "redc_mod",
-                      "lehmer_euclid", "canon_sm", "compose_prologue")
+                      "lehmer_euclid", "canon_sm", "compose_prologue", "gcd_bridge",
+                      "gcd2_merge", "c3_operands")
 
 
 @contextlib.contextmanager
 def _opaque_kernels(monkeypatch, calls=None):
-    """The ten kernel dispatchers run their plain versions on plain
+    """The thirteen kernel dispatchers run their plain versions on plain
     tensors (on the card they are single launches); `calls` counts the
     dispatcher calls made outside another one (`calls["inside"]` > 0
     while one runs)."""
@@ -198,8 +199,8 @@ def test_compose2_card_route_launches_the_kernels_and_no_inverse(toy_hsm, monkey
     """The card's call plan, on the CPU: with the route compose2 takes for
     a CUDA tensor (cuda_group.plain_route false: no shared 2-adic inverse)
     and every kernel an opaque call to its plain version, one compose2
-    calls K5m 7 times, K5d 4 times, K4 4 times, K6a 4 times and K6b once,
-    calls limb.inv_pow2
+    calls K5m 7 times, K5d 4 times, K4 4 times, K6a 4 times and K6b, K6c,
+    K6d and K6e once each, calls limb.inv_pow2
     never outside a kernel, reads nothing on the host and gives the JAX
     package's reduced forms."""
     jcg, pcg, L = _cgs(toy_hsm)
@@ -229,6 +230,7 @@ def test_compose2_card_route_launches_the_kernels_and_no_inverse(toy_hsm, monkey
     assert inverses == []
     assert (calls["mag_mul"], calls["mag_divexact_odd"], calls["redc_mod"]) == (7, 4, 4)
     assert (calls["canon_sm"], calls["compose_prologue"]) == (4, 1)
+    assert calls["gcd_bridge"] == calls["gcd2_merge"] == calls["c3_operands"] == 1
     assert calls["reduce2_grouped_loop"] == calls["reduce_exact"] == calls["mod_topdown"] == 1
 
 
@@ -327,12 +329,13 @@ def test_replays_count_the_captured_launches_on_card(cuda_device):
     (graph,) = gcg.compose_graphs.graphs.values()
     kinds = collections.Counter(k[0] for k in graph.keys)
     # two first-gcd passes where the narrow width is below L, then W=8, Lh;
-    # seven products, four exact quotients, four REDCs, four signed sums
-    # and the prologue
+    # seven products, four exact quotients, four REDCs, four signed sums,
+    # the prologue, the gcd bridge and merge and c3's operands
     assert kinds == {"xgcd_coeff_g": 4 if gcg.Lxn < gcg.L else 3, "mod_topdown": 1,
                      "reduce2_grouped": 1, "reduce_exact": 1, "mag_mul": 7,
                      "divexact_odd": 4, "redc_mod": 4, "canon_sm": 4,
-                     "compose_prologue": 1}
+                     "compose_prologue": 1, "gcd_bridge": 1, "gcd2_merge": 1,
+                     "c3_operands": 1}
     for _ in range(3):
         before = dict(cuda_group.LAUNCHES)
         by_key = dict(cuda_group.LAUNCHES_BY_KEY)

@@ -525,8 +525,10 @@ def test_nucomp_compose2_card_route_reads_nothing_on_the_host(toy_hsm, monkeypat
     assert isinstance(out.a, _NoSync)
     assert calls["lehmer_euclid"] == 1
     # K6a: compose2's four sums, then the tail's cofactors (two pairs), its
-    # two form values (one pair) and the cross term; K6b once
+    # two form values (one pair) and the cross term; K6b, K6c, K6d and K6e
+    # once
     assert (calls["canon_sm"], calls["compose_prologue"]) == (8, 1)
+    assert calls["gcd_bridge"] == calls["gcd2_merge"] == calls["c3_operands"] == 1
     assert _tuples(bform_to_forms(BForm(*(_plain(x) for x in out)))) == want
 
 
