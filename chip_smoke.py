@@ -1533,6 +1533,7 @@ def report_graphs(cg, label: str) -> None:
 
 def run_slice(torch, cgp, rec, CryptoSystem, Tensor, GmpEngine, rng):
     """encrypt -> homomorphic matmul -> decrypt at sec=128, k=128."""
+    from cofhe_tpu_torch.utils import trace
     from cofhe_tpu_torch.utils.benchmark import PhaseTimer
 
     timer = PhaseTimer("cuda")
@@ -1556,7 +1557,8 @@ def run_slice(torch, cgp, rec, CryptoSystem, Tensor, GmpEngine, rng):
         # the generator replays it for the host check below
         rand_at_matmul = copy.deepcopy(cs.rand_gen)
         rec.phase = "matmul"
-        with timer("matmul_s"):
+        # traced: the matmul then fills last_matmul_phases
+        with timer("matmul_s"), trace.enabled():
             res = cs.scal_ciphertext_tensors(pk, pt, ct)
             torch.cuda.synchronize()
         phases.update({f"matmul_{k}": v

@@ -39,7 +39,7 @@ def make_setup_node(self_node: NodeDetails, cs_details: CryptoSystemDetails,
     handler = SetupNodeHandler(self_node, cs_details, device=device,
                                state_path=state_path)
     server = Server(self_node.ip, int(self_node.port), handler.handle,
-                    _server_ssl(certfile, keyfile))
+                    _server_ssl(certfile, keyfile), role="setup")
     return server, handler
 
 
@@ -93,7 +93,7 @@ def make_cofhe_node(self_node: NodeDetails, setup_node: NodeDetails,
     nd.secret_key_shares = jresp.secret_key_shares
     handler = CoFHENodeHandler(nd, device=device)
     return Server(self_node.ip, int(self_node.port), handler.handle,
-                  _server_ssl(certfile, keyfile))
+                  _server_ssl(certfile, keyfile), role="cofhe")
 
 
 def make_compute_node(self_node: NodeDetails, setup_node: NodeDetails,
@@ -105,7 +105,7 @@ def make_compute_node(self_node: NodeDetails, setup_node: NodeDetails,
     nd.self_node = NodeDetails(self_node.ip, self_node.port, NodeType.COMPUTE_NODE)
     handler = ComputeNodeHandler(nd, device=device, use_tls=use_tls)
     return Server(self_node.ip, int(self_node.port), handler.handle,
-                  _server_ssl(certfile, keyfile))
+                  _server_ssl(certfile, keyfile), role="compute")
 
 
 class ClientNode:

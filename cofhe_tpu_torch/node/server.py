@@ -13,11 +13,13 @@ The port's copy of cofhe_tpu/node/server.py.
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import logging
 import ssl
 import threading
 from typing import Callable
 
+from ..utils import trace
 from .wire import Request, Response, ServiceType, Status
 
 log = logging.getLogger("cofhe_tpu_torch.node")
@@ -42,14 +44,19 @@ def generate_self_signed_cert(cert_path: str, key_path: str, cn: str = "localhos
 
 class Server:
     """Request/response server. `handler(request: Request) -> Response` runs
-    in a thread pool (crypto work is CPU/GPU heavy)."""
+    in a thread pool (crypto work is CPU/GPU heavy), in a copy of the
+    serving task's context. While tracing is on (utils/trace.py) each
+    request is a `node.request` span from its body read to its response
+    written, with the node's `role` and the service; the handler's spans
+    are its children."""
 
     def __init__(self, host: str, port: int, handler: Callable[[Request], Response],
-                 ssl_context: ssl.SSLContext | None = None):
+                 ssl_context: ssl.SSLContext | None = None, role: str = ""):
         self.host = host
         self.port = port
         self.handler = handler
         self.ssl_context = ssl_context
+        self.role = role
         self._server: asyncio.AbstractServer | None = None
         self._loop: asyncio.AbstractEventLoop | None = None
         self._thread: threading.Thread | None = None
@@ -67,13 +74,17 @@ class Server:
                 body = await reader.readexactly(size)
                 req = Request(service, body, ver)
                 loop = asyncio.get_running_loop()
-                try:
-                    resp = await loop.run_in_executor(None, self.handler, req)
-                except Exception as e:  # handler errors -> ERROR response
-                    log.exception("handler error from %s", peer)
-                    resp = Response(service, Status.ERROR, str(e).encode(), ver)
-                writer.write(resp.to_bytes())
-                await writer.drain()
+                with trace.span("node.request") as sp:
+                    if sp:
+                        sp.attrs.update(role=self.role, service=service.name)
+                    try:
+                        resp = await loop.run_in_executor(
+                            None, contextvars.copy_context().run, self.handler, req)
+                    except Exception as e:  # handler errors -> ERROR response
+                        log.exception("handler error from %s", peer)
+                        resp = Response(service, Status.ERROR, str(e).encode(), ver)
+                    writer.write(resp.to_bytes())
+                    await writer.drain()
         except Exception:
             log.exception("session error from %s", peer)
         finally:

@@ -101,8 +101,11 @@ Lxn) for the prologue, Lxn and Lh for the gcd bridge, the width-8 rows'
 width for the merge, a3's width for c3's operands, else 0) where it
 launches its kernel and nowhere else.
 While a thread captures a CUDA graph (`capturing_launches`, ops/graphs.py) its
-launches are recorded into the graph's key list instead, and each replay
-of the graph counts them (`count_launches`): the kernels run once a replay.
+launches are recorded into the graph's key list instead, and the graph's
+`GraphLaunches` (`graph_launches`) counts its replays: the kernels run
+once a replay. A replay only bumps that count; `LAUNCHES` and
+`LAUNCHES_BY_KEY` add each graph's keys times its replays when they are
+read, and fold a freed graph's into the eager counts.
 """
 
 from __future__ import annotations
@@ -115,6 +118,8 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
+from collections.abc import Mapping
 
 import torch
 
@@ -149,9 +154,12 @@ _ARGTYPES = {
 }
 KERNELS = tuple(_ARGTYPES)
 
-LAUNCHES = {name: 0 for name in KERNELS}
-# launches by (kernel, width, extra, batch)
-LAUNCHES_BY_KEY: dict = {}
+# launches outside graphs (and of freed graphs), by (kernel, width, extra,
+# batch)
+_EAGER: dict = {}
+# the GraphLaunches of the captured graphs not yet folded into _EAGER
+_GRAPHS: set = set()
+_GRAPHS_LOCK = threading.Lock()
 # the key list of the graph this thread is capturing, if any
 _CAPTURE = threading.local()
 
@@ -160,17 +168,88 @@ _LIBS: dict = {}
 BUILD_INFO: dict = {"seconds": None, "log": ""}
 
 
+class GraphLaunches:
+    """The launches a captured graph makes each replay (`per_replay`: key
+    -> count) and its replays; `base` is its replays at the last
+    `reset_launches`, `owner` a weak reference to the graph."""
+
+    __slots__ = ("per_replay", "replays", "base", "owner")
+
+    def __init__(self, owner, keys):
+        self.per_replay: dict = {}
+        for key in keys:
+            self.per_replay[key] = self.per_replay.get(key, 0) + 1
+        self.replays = 0
+        self.base = 0
+        self.owner = weakref.ref(owner)
+
+
+def graph_launches(owner, keys) -> GraphLaunches:
+    """The launch record of `owner`, a graph that replays `keys`: counted in
+    LAUNCHES from now on; the owner adds one to `replays` a replay."""
+    g = GraphLaunches(owner, keys)
+    with _GRAPHS_LOCK:
+        _GRAPHS.add(g)
+    return g
+
+
+def _add_replays(by_key: dict, g: GraphLaunches) -> None:
+    n = g.replays - g.base
+    if n:
+        for key, c in g.per_replay.items():
+            by_key[key] = by_key.get(key, 0) + c * n
+
+
+class _Launches(Mapping):
+    """Launches so far, read-only: by kernel name (every kernel, 0 where
+    none ran) or by key. The eager launches counted as they run, plus each
+    graph's launches a replay times its replays since the last reset, added
+    when read; a freed graph's are folded into the eager counts."""
+
+    def __init__(self, by_name: bool):
+        self._by_name = by_name
+
+    def _read(self) -> dict:
+        with _GRAPHS_LOCK:
+            for g in [g for g in _GRAPHS if g.owner() is None]:
+                _GRAPHS.discard(g)
+                _add_replays(_EAGER, g)
+            by_key = dict(_EAGER)
+            for g in _GRAPHS:
+                _add_replays(by_key, g)
+        if not self._by_name:
+            return by_key
+        by_name = dict.fromkeys(KERNELS, 0)
+        for key, c in by_key.items():
+            by_name[key[0]] += c
+        return by_name
+
+    def __getitem__(self, key):
+        return self._read()[key]
+
+    def __iter__(self):
+        return iter(self._read())
+
+    def __len__(self) -> int:
+        return len(self._read())
+
+
+LAUNCHES = _Launches(by_name=True)
+# launches by (kernel, width, extra, batch)
+LAUNCHES_BY_KEY = _Launches(by_name=False)
+
+
 def reset_launches() -> None:
-    for name in KERNELS:
-        LAUNCHES[name] = 0
-    LAUNCHES_BY_KEY.clear()
+    with _GRAPHS_LOCK:
+        _EAGER.clear()
+        for g in _GRAPHS:
+            g.base = g.replays
 
 
 def count_launches(keys) -> None:
-    """Count one launch for each (name, width, extra, batch) key."""
+    """Count one eager launch for each (name, width, extra, batch) key."""
     for key in keys:
-        LAUNCHES[key[0]] += 1
-        LAUNCHES_BY_KEY[key] = LAUNCHES_BY_KEY.get(key, 0) + 1
+        _EAGER[key] = _EAGER.get(key, 0) + 1
 
 
 @contextlib.contextmanager

@@ -12,8 +12,7 @@ Every batched op comes down to `CG.compose2` on int32 limb tensors:
                           ops/matmul2.py, in row chunks of about
                           `MATMUL_LANES` exponent lanes: per chunk the
                           doubling chain, the ladder + contraction, the Yao
-                          finalization and the Enc(0) fold (their seconds,
-                          summed over chunks, in `last_matmul_phases`);
+                          finalization and the Enc(0) fold;
   * part_decrypt_batch / decrypt_batch - the shared-exponent wNAF ladder
                           (the exponent is the host-known share or secret
                           key), then the host-side closed-form dlog;
@@ -39,6 +38,15 @@ same inputs and every rank returns the full result.
   * combine_batch gathers the parties' rows over tp when tp == t > 1;
   * the wNAF part-decryption stays local to each rank.
 Otherwise every rank runs the one-device path on the whole batch.
+
+While tracing is on (utils/trace.py) the engine records the spans
+`engine.part_decrypt` (part_decrypt_batch), `engine.recode` (the matmul's
+signed-window recoding of the plaintext) and, per matmul chunk,
+`engine.matmul.chain`, `.ladder` and `.finalize`. The chain and ladder
+spans then end after a synchronize, so each holds its device work, and
+their seconds, summed over chunks, are `last_matmul_phases` (`chain_s`,
+`ladder_s`, `finalize_s`). Untraced, a chunk does not synchronize and
+`last_matmul_phases` is absent.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from ..core.qfi import neg as qneg, nudupl as qnudupl, reduce_form
 from ..parallel.sharded import (_scan_tree_compose, gather_bform,
                                 sharded_matmul, sharded_threshold_combine)
 from ..tensor import Tensor
+from ..utils import trace
 from . import limb as lb
 from .forms import BForm, bform_from_forms, bform_neg, bform_to_forms
 from .forms2 import CG, CGCtx
@@ -253,6 +262,7 @@ class TorchEngine:
                        bform_to_forms(self._gather_rows(fm, batch))[:e - s])
         return out
 
+    @trace.traced("engine.part_decrypt")
     @torch.inference_mode()
     def part_decrypt_batch(self, share: int, cts):
         """d_i = c1^share for every ct (shared exponent, wNAF ladder)."""
@@ -290,28 +300,33 @@ class TorchEngine:
         n, m = ct_tensor.shape
         _, p = s_tensor.shape
         nwind = nwind_for_bits(self.hsm.k, YAO_W)
-        recoded = np.zeros((m * p, nwind), dtype=np.int32)
-        for idx in range(m * p):
-            recoded[idx] = signed_windows(int(s_tensor.data[idx]), YAO_W,
-                                          nwind)
+        with trace.span("engine.recode"):
+            recoded = np.zeros((m * p, nwind), dtype=np.int32)
+            for idx in range(m * p):
+                recoded[idx] = signed_windows(int(s_tensor.data[idx]), YAO_W,
+                                              nwind)
         dp, tp = self._mesh_dims()
         if dp * tp > 1 and (2 * n) % dp == 0 and m % tp == 0:
             return self._scal_matmul_sharded(recoded, ct_tensor, zero_ct,
                                              n, m, p, nwind)
         chunk = max(1, MATMUL_LANES // (2 * m * p))
-        self.last_matmul_phases = dict.fromkeys(
-            ("chain_s", "ladder_s", "finalize_s"), 0.0)
+        phases = None
+        if trace.on():
+            phases = self.last_matmul_phases = dict.fromkeys(
+                ("chain_s", "ladder_s", "finalize_s"), 0.0)
+        else:
+            self.__dict__.pop("last_matmul_phases", None)
         cts = []
         for start in range(0, n, chunk):
             rows = range(start, min(start + chunk, n))
             cts.extend(self._scal_matmul_rows(rows, recoded, ct_tensor,
-                                              zero_ct, m, p, nwind))
+                                              zero_ct, m, p, nwind, phases))
         return Tensor(cts, (n, p))
 
     def _scal_matmul_rows(self, rows, recoded, ct_tensor, zero_ct,
-                          m: int, p: int, nwind: int):
+                          m: int, p: int, nwind: int, phases=None):
         """One chunk of ct rows -> its (n_rows * p) result ciphertexts in
-        (row, k) order."""
+        (row, k) order; the phases' seconds added to `phases` when given."""
         nr = len(rows)
         plan = get_plan(2 * nr, m, p, nwind, YAO_W)
         # digit lane r = ((hi*m + j)*p + kk) -> scalar (j*p + kk)
@@ -322,21 +337,25 @@ class TorchEngine:
         bf_cells = bform_from_forms([ct.c1 for ct in cells]
                                     + [ct.c2 for ct in cells], self.L,
                                     self.device)
-        phases = self.last_matmul_phases
-        t0 = time.perf_counter()
-        chain = make_chain(self.cg, plan)(bf_cells)
-        t1 = self._synced_clock()
-        smallbank = make_ladder(self.cg, plan)(chain, jobs)
-        del chain
-        t2 = self._synced_clock()
-        bf_zero = bform_from_forms([zero_ct.c1] * (nr * p)
-                                   + [zero_ct.c2] * (nr * p), self.L,
-                                   self.device)
-        forms = bform_to_forms(make_phase2(self.cg, plan)(smallbank, bf_zero))
-        t3 = time.perf_counter()
-        phases["chain_s"] += t1 - t0
-        phases["ladder_s"] += t2 - t1
-        phases["finalize_s"] += t3 - t2
+        with trace.span("engine.matmul.chain") as chain_span:
+            chain = make_chain(self.cg, plan)(bf_cells)
+            if chain_span:
+                self._synchronize()
+        with trace.span("engine.matmul.ladder") as ladder_span:
+            smallbank = make_ladder(self.cg, plan)(chain, jobs)
+            del chain
+            if ladder_span:
+                self._synchronize()
+        # ends in a host read of the results
+        with trace.span("engine.matmul.finalize") as finalize_span:
+            bf_zero = bform_from_forms([zero_ct.c1] * (nr * p)
+                                       + [zero_ct.c2] * (nr * p), self.L,
+                                       self.device)
+            forms = bform_to_forms(make_phase2(self.cg, plan)(smallbank, bf_zero))
+        if phases is not None and chain_span and ladder_span and finalize_span:
+            phases["chain_s"] += chain_span.seconds
+            phases["ladder_s"] += ladder_span.seconds
+            phases["finalize_s"] += finalize_span.seconds
         return [CipherText(forms[i], forms[nr * p + i]) for i in range(nr * p)]
 
     def _scal_matmul_sharded(self, recoded, ct_tensor, zero_ct, n: int,
@@ -380,8 +399,7 @@ class TorchEngine:
                                     "rebuild_s": time.perf_counter() - t_device}
         return Tensor(cts, (n, p))
 
-    def _synced_clock(self) -> float:
-        """Host clock after the device has finished the queued work."""
+    def _synchronize(self) -> None:
+        """Wait for the device's queued work (traced matmul phases only)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return time.perf_counter()

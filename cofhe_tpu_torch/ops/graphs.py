@@ -29,9 +29,12 @@ One `ComposeGraph` per (device, batch shape), held by the CG's
   inside compose2 fails the capture, and a failed capture raises:
   nothing falls back to eager;
 * replay: copy F1 and F2 into the static inputs (nudupl2 passes one F
-  twice), replay, count the graph's keys (cuda_group.count_launches) and
-  return clones of the static outputs, since a caller may feed an output
-  straight back in as the next input.
+  twice), replay and return clones of the static outputs, since a caller
+  may feed an output straight back in as the next input. A replay adds one
+  to the graph's replays (its `cuda_group.GraphLaunches`, from which
+  cuda_group.LAUNCHES counts the graph's kernels when read) and, while
+  tracing is on, is a `graphs.replay` span (utils/trace.py) with the batch
+  as `lanes`, from the input copies to the clones enqueued.
 
 Captures use thread-local capture mode on a stream of their own, so a
 node runtime's other threads may keep using the card meanwhile; one lock
@@ -54,6 +57,7 @@ import time
 
 import torch
 
+from ..utils import trace
 from . import cuda_group
 from .forms import BForm
 
@@ -122,7 +126,12 @@ class ComposeGraph:
             self.capture_s = time.perf_counter() - t
             self.reserved_after = torch.cuda.memory_reserved(dev)
         self.keys = tuple(keys)
-        self.replays = 0
+        self.launches = cuda_group.graph_launches(self, self.keys)
+        self._span_attrs = {"lanes": B}
+
+    @property
+    def replays(self) -> int:
+        return self.launches.replays
 
     @property
     def pool_bytes(self) -> int:
@@ -139,12 +148,12 @@ class ComposeGraph:
 
     def run(self, F1: BForm, F2: BForm) -> BForm:
         """compose2(F1, F2) by one replay, as fresh tensors."""
-        with torch.cuda.device(self.device):
+        with trace.span("graphs.replay", self._span_attrs), \
+                torch.cuda.device(self.device):
             self._load(F1, F2)
             self.graph.replay()
             out = BForm(*(x.clone() for x in self.out))
-        cuda_group.count_launches(self.keys)
-        self.replays += 1
+        self.launches.replays += 1
         return out
 
 

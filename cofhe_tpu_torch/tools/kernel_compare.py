@@ -224,6 +224,7 @@ def matmul_again(torch, smoke, cgp, base, main) -> None:
     """The main path's matmul once more with this checkout's kernels and
     once with the baseline's, on the same inputs and Enc(0)."""
     from cofhe_tpu_torch.core.qfi import is_reduced, reduce_form
+    from cofhe_tpu_torch.utils import trace
 
     cs, pk, pt, ct, res = (main[k] for k in ("cs", "pk", "pt", "ct", "res"))
     cg, graphs = cs._engine.cg, cs._engine.cg.graphs
@@ -233,7 +234,8 @@ def matmul_again(torch, smoke, cgp, base, main) -> None:
             cs.rand_gen = copy.deepcopy(main["rand_at_matmul"])  # the same Enc(0)
             swap = baseline_in_place(torch, cgp, base) if label.startswith("the baseline") \
                 else contextlib.nullcontext()
-            with swap:
+            # traced: the matmul then fills last_matmul_phases
+            with swap, trace.enabled():
                 t = time.perf_counter()
                 again = cs.scal_ciphertext_tensors(pk, pt, ct)
                 torch.cuda.synchronize()

@@ -2,7 +2,8 @@
 (benchmarks/benchmark.hpp:5-146): run a callable N times, report
 first/last/average/median/total milliseconds, and autosave results to
 `benchmark_results_<tag><datetime>.txt` periodically. The port's copy of
-cofhe_tpu/utils/benchmark.py; PhaseTimer marks its phases in torch.profiler
+cofhe_tpu/utils/benchmark.py; PhaseTimer is the by-name seconds view over the
+port's tracer (utils/trace.py), and marks its phases in torch.profiler
 traces (and NVTX ranges on a CUDA device)."""
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+
+from . import trace
 
 
 @dataclass
@@ -65,41 +68,23 @@ class Benchmark:
 
 
 class PhaseTimer:
-    """Named phase timing (the tracing the reference lacks, SURVEY.md §5).
-    Each phase is a torch.profiler.record_function range, so it shows in a
-    torch.profiler trace under its name; on a CUDA `device` it is also an
-    NVTX range for CUDA tools. Seconds accumulate by name over repeated phases.
-    Work queued on the card is not waited for: a caller that times device
-    work synchronizes before the phase ends."""
+    """Seconds by phase name over the port's tracer (utils/trace.py): each
+    phase is timed on the span's clock, recorded as a span while tracing
+    is on, and a torch.profiler.record_function range, so it shows in a torch.profiler
+    trace under its name; on a CUDA `device` it is also an NVTX range for
+    CUDA tools. Seconds accumulate by name over repeated phases. Work
+    queued on the card is not waited for: a caller that times device work
+    synchronizes before the phase ends."""
 
     def __init__(self, device=None):
         self.phases: dict[str, float] = {}
         self.cuda = device is not None and torch.device(device).type == "cuda"
 
     def __call__(self, name: str):
-        return _Phase(self, name)
+        return trace.phase(name, self._add, nvtx=self.cuda)
+
+    def _add(self, span) -> None:
+        self.phases[span.name] = self.phases.get(span.name, 0.0) + span.seconds
 
     def report(self) -> str:
         return ", ".join(f"{k}: {v * 1e3:.1f} ms" for k, v in self.phases.items())
-
-
-class _Phase:
-    def __init__(self, timer: PhaseTimer, name: str):
-        self.timer = timer
-        self.name = name
-
-    def __enter__(self):
-        self._ctx = torch.profiler.record_function(self.name)
-        self._ctx.__enter__()
-        if self.timer.cuda:
-            torch.cuda.nvtx.range_push(self.name)
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        if self.timer.cuda:
-            torch.cuda.nvtx.range_pop()
-        self._ctx.__exit__(*exc)
-        self.timer.phases[self.name] = self.timer.phases.get(self.name, 0.0) + dt
-        return False

@@ -246,8 +246,8 @@ def test_compose_graph_refuses_a_cpu_device(toy_hsm):
 
 def test_captured_launches_are_counted_by_replays(monkeypatch):
     """cuda_group._launch records this thread's launches into the graph
-    being captured (another thread's are not) and counts them only when
-    count_launches replays them."""
+    being captured (another thread's are not) and counts them only for
+    the graph's replays, which LAUNCHES adds when read."""
     calls = []
     monkeypatch.setattr(cuda_group, "build", lambda: {
         n: (lambda *a, _n=n: calls.append(_n) or 0) for n in cuda_group.KERNELS})
@@ -267,8 +267,10 @@ def test_captured_launches_are_counted_by_replays(monkeypatch):
     assert keys == [key] and calls == ["reduce_exact"] * 2
     # only the other thread's launch was counted
     assert cuda_group.LAUNCHES["reduce_exact"] == before["reduce_exact"] + 1
-    for _ in range(3):  # three replays
-        cuda_group.count_launches(keys)
+    owner = type("Graph", (), {})()  # the record's graph, as a ComposeGraph is
+    graph = cuda_group.graph_launches(owner, keys)
+    for _ in range(3):  # three replays, as ComposeGraph.run counts them
+        graph.replays += 1
     assert cuda_group.LAUNCHES["reduce_exact"] == before["reduce_exact"] + 4
     assert cuda_group.LAUNCHES_BY_KEY[key] == before_key + 4
     assert {k: v for k, v in cuda_group.LAUNCHES.items() if k != "reduce_exact"} == \
