@@ -12,9 +12,9 @@ tail, K7 for the Lehmer walk, it reads no value on the host, so it is one
 fixed sequence of kernels, which a `torch.cuda.CUDAGraph` captures once
 and replays as one launch. A NUCOMP CG (`use_nucomp`) is a CG object of
 its own, with its own graphs and memory pools. Every caller of
-`CG.compose2` / `nudupl2` (the wNAF and Yao ladders, the matmul's chain,
-ladder and finalization, add, combine, the sharded paths) takes the graph
-with no change of its own.
+`CG.compose2` / `nudupl2` (the Yao ladder, the wNAF bank, the matmul's
+chain, ladder and finalization, add, combine, the sharded paths) takes the
+graph with no change of its own.
 
 One `ComposeGraph` per (device, batch shape), held by the CG's
 `ComposeGraphs` and built at first use:
@@ -36,14 +36,36 @@ One `ComposeGraph` per (device, batch shape), held by the CG's
   tracing is on, is a `graphs.replay` span (utils/trace.py) with the batch
   as `lanes`, from the input copies to the clones enqueued.
 
+The shared-exponent wNAF ladder (`nupow2.wnaf_segment`: one nudupl a
+digit, then a compose with a bank slot or its inverse where the digit is
+nonzero) keeps its state on the card instead: one `LadderGraphs` per
+(device, batch shape, bank slots), in the same `ComposeGraphs` (its
+`ladders`, apart from `graphs`), built at first use with the same
+warm-up (from the bank's first slot), collection and capture rules. Its static buffers hold the
+running form `r`, the bank with the inverses' signs beside it and a plan
+(a counter, then the bank row of each nonzero digit in order), and two
+graphs step `r` in place: S, `r <- nudupl2(r)`, and SC, `r <- compose2(
+nudupl2(r), bank[plan[counter]])` with the counter advanced. Neither
+depends on the exponent. A call loads `r` and the bank, uploads the plan
+(again every `PLAN_ROWS` nonzero digits), launches S or SC for each
+digit, which the host knows, and returns a clone of `r`: one launch a
+digit, with no copies around it. The step bodies run eagerly on the CPU
+too (`LadderSteps`), which is how the tests drive them; `wnaf_segment`
+itself keeps its compose2 loop on the CPU and with `graphs=False`. A
+ladder call adds to its graphs' replays (`LadderGraphs.steps` is their
+sum; cuda_group.LAUNCHES counts their kernels) and, while tracing is on,
+is one `graphs.ladder` span with `lanes` and `steps` (its digits).
+
 Captures use thread-local capture mode on a stream of their own, so a
 node runtime's other threads may keep using the card meanwhile; one lock
-a CG orders builds and replays, which run on the caller's current stream.
-The lock is released once a replay and its clones are enqueued, so the
-static inputs and outputs are shared safely only while every caller of a
-CG on one device uses one stream (the default stream: nothing in the port
-sets another). A caller on a stream of its own could overwrite the static
-inputs while another stream's replay still reads them.
+a CG orders builds and compose2 replays, and one lock a LadderGraphs its
+ladder calls, from loading the state to the result's clone; both run on
+the caller's current stream. The locks are released once the work and
+its clones are enqueued, so the static buffers are shared safely only
+while every caller of a CG on one device uses one stream (the default
+stream: nothing in the port sets another). A caller on a stream of its
+own could overwrite the static buffers while another stream's replay
+still reads them.
 
 Each graph keeps its private memory pool for the life of its CG, one per
 batch size seen; nothing releases them.
@@ -59,13 +81,70 @@ import torch
 
 from ..utils import trace
 from . import cuda_group
-from .forms import BForm
+from .forms import BForm, bform_neg
 
 I32 = torch.int32
+# nonzero digits a plan upload holds; a longer exponent uploads again
+PLAN_ROWS = 1024
 
 
 def _shape(F: BForm):
     return tuple(F.a.shape), tuple(F.b_sign.shape)
+
+
+def _empty_bform(lead: tuple, L: int, dev) -> BForm:
+    return BForm(torch.empty(lead + (L,), dtype=I32, device=dev),
+                 torch.empty(lead, dtype=I32, device=dev),
+                 torch.empty(lead + (L,), dtype=I32, device=dev),
+                 torch.empty(lead + (L,), dtype=I32, device=dev))
+
+
+class _Captured:
+    """`body` as a CUDA graph on its device: warmed up once eagerly on a
+    side stream, then captured there (module docstring); `out` is what the
+    captured call returned, `launches` the graph's launch record (owned by
+    `owner`), `warmup_s`, `capture_s` and the memory reserved around the
+    capture."""
+
+    def __init__(self, owner, dev, body, what: str):
+        cur = torch.cuda.current_stream(dev)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(cur)
+        t = time.perf_counter()
+        with torch.cuda.stream(stream):
+            body()
+        stream.synchronize()
+        self.warmup_s = time.perf_counter() - t
+        self.reserved_before = torch.cuda.memory_reserved(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        keys: list = []
+        t = time.perf_counter()
+        # a graph that the cyclic collector frees mid-capture (another
+        # CG's) would release its pool: a call that invalidates the
+        # capture. Collect first, and not during it.
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(stream), cuda_group.capturing_launches(keys):
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.out = body()
+                except BaseException as e:
+                    try:
+                        self.graph.capture_end()
+                    except Exception:  # the capture is already invalid
+                        pass
+                    raise RuntimeError(f"capturing {what} on {dev} failed: {e}") from e
+                self.graph.capture_end()
+        finally:
+            if was_enabled:
+                gc.enable()
+        cur.wait_stream(stream)
+        self.capture_s = time.perf_counter() - t
+        self.reserved_after = torch.cuda.memory_reserved(dev)
+        self.keys = tuple(keys)
+        self.launches = cuda_group.graph_launches(owner, self.keys)
 
 
 class ComposeGraph:
@@ -80,53 +159,14 @@ class ComposeGraph:
         B, L = self.shape[0]
         self.device = dev
         with torch.cuda.device(dev), torch.inference_mode(False), torch.no_grad():
-            def static() -> BForm:
-                return BForm(torch.empty((B, L), dtype=I32, device=dev),
-                             torch.empty((B,), dtype=I32, device=dev),
-                             torch.empty((B, L), dtype=I32, device=dev),
-                             torch.empty((B, L), dtype=I32, device=dev))
-
-            self.in1, self.in2 = static(), static()
+            self.in1, self.in2 = _empty_bform((B,), L, dev), _empty_bform((B,), L, dev)
             self._load(F1, F2)
-            cur = torch.cuda.current_stream(dev)
-            stream = torch.cuda.Stream(dev)
-            stream.wait_stream(cur)
-            t = time.perf_counter()
-            with torch.cuda.stream(stream):
-                cg.compose2_eager(self.in1, self.in2)
-            stream.synchronize()
-            self.warmup_s = time.perf_counter() - t
-            self.reserved_before = torch.cuda.memory_reserved(dev)
-            self.graph = torch.cuda.CUDAGraph()
-            keys: list = []
-            t = time.perf_counter()
-            # a graph that the cyclic collector frees mid-capture (another
-            # CG's) would release its pool: a call that invalidates the
-            # capture. Collect first, and not during it.
-            gc.collect()
-            was_enabled = gc.isenabled()
-            gc.disable()
-            try:
-                with torch.cuda.stream(stream), cuda_group.capturing_launches(keys):
-                    self.graph.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        self.out = cg.compose2_eager(self.in1, self.in2)
-                    except BaseException as e:
-                        try:
-                            self.graph.capture_end()
-                        except Exception:  # the capture is already invalid
-                            pass
-                        raise RuntimeError(f"capturing compose2 at batch {B} on {dev} "
-                                           f"failed: {e}") from e
-                    self.graph.capture_end()
-            finally:
-                if was_enabled:
-                    gc.enable()
-            cur.wait_stream(stream)
-            self.capture_s = time.perf_counter() - t
-            self.reserved_after = torch.cuda.memory_reserved(dev)
-        self.keys = tuple(keys)
-        self.launches = cuda_group.graph_launches(self, self.keys)
+            cap = _Captured(self, dev, lambda: cg.compose2_eager(self.in1, self.in2),
+                            f"compose2 at batch {B}")
+        self.graph, self.out, self.keys, self.launches = (cap.graph, cap.out, cap.keys,
+                                                          cap.launches)
+        self.warmup_s, self.capture_s = cap.warmup_s, cap.capture_s
+        self.reserved_before, self.reserved_after = cap.reserved_before, cap.reserved_after
         self._span_attrs = {"lanes": B}
 
     @property
@@ -157,13 +197,150 @@ class ComposeGraph:
         return out
 
 
+def wnaf_plan(sched, nslots: int) -> list[int]:
+    """The plan of a wNAF digit stream: for each nonzero digit d, in order,
+    its row of the ladder's bank, (|d| - 1) / 2 for d > 0 and that plus
+    `nslots` (the slot's inverse) for d < 0."""
+    rows = []
+    for d in sched:
+        if d:
+            slot = (abs(d) - 1) // 2
+            if not (d & 1 and slot < nslots):
+                raise ValueError(f"wNAF digit {d} is not an odd digit of a "
+                                 f"{nslots}-slot bank")
+            rows.append(slot + nslots if d < 0 else slot)
+    return rows
+
+
+class LadderSteps:
+    """The wNAF ladder's state at one (device, batch shape, bank slots) of
+    a CG, and its two steps on it (module docstring): `r`, the running
+    form; `bank`, the S slots, with the inverses' signs in rows S..2S-1 of
+    `bank.b_sign`; `plan`, the counter then at most PLAN_ROWS bank rows.
+    `step_s` and `step_sc` launch the steps: here they run eagerly (the
+    CPU's route in the tests); LadderGraphs replays their captures."""
+
+    def __init__(self, cg, bank: BForm, r: BForm):
+        self.cg = cg
+        self.shape = (tuple(bank.a.shape), _shape(r))
+        S, B, L = bank.a.shape
+        dev = self.device = r.a.device
+        self.nslots = S
+        self.r = _empty_bform((B,), L, dev)
+        self.bank = BForm(torch.empty((S, B, L), dtype=I32, device=dev),
+                          torch.empty((2 * S, B), dtype=I32, device=dev),
+                          torch.empty((S, B, L), dtype=I32, device=dev),
+                          torch.empty((S, B, L), dtype=I32, device=dev))
+        self.plan = torch.zeros(1 + PLAN_ROWS, dtype=I32, device=dev)
+        self.step_s, self.step_sc = self.square, self.square_mul
+
+    def _load(self, bank: BForm, r: BForm) -> None:
+        if (tuple(bank.a.shape), _shape(r)) != self.shape or r.a.device != self.device:
+            raise ValueError(f"ladder at {self.shape} on {self.device} got a bank "
+                             f"of {tuple(bank.a.shape)} and r of {_shape(r)} on "
+                             f"{r.a.device}")
+        for dst, src in zip(self.r, r):
+            dst.copy_(src)
+        S = self.nslots
+        for dst, src in zip(self.bank, bank):
+            dst[:S].copy_(src)
+        self.bank.b_sign[S:].copy_(bform_neg(bank).b_sign)
+
+    def _upload(self, rows: list) -> None:
+        """The counter, 0, then `rows`, stream-ordered after what was queued."""
+        host = torch.tensor([0] + rows, dtype=I32, pin_memory=self.plan.is_cuda)
+        self.plan[:len(host)].copy_(host, non_blocking=True)
+
+    def square(self) -> None:
+        """S: r <- nudupl2(r)."""
+        self._set_r(self.cg.compose2_eager(self.r, self.r))
+
+    def square_mul(self) -> None:
+        """SC: r <- compose2(nudupl2(r), bank row plan[1 + counter]); the
+        counter advances. Reads nothing on the host."""
+        counter = self.plan[:1]
+        row = self.plan.index_select(0, counter + 1)
+        slot = row.remainder(self.nslots)
+        t = BForm(self.bank.a.index_select(0, slot)[0],
+                  self.bank.b_sign.index_select(0, row)[0],
+                  self.bank.b.index_select(0, slot)[0],
+                  self.bank.c.index_select(0, slot)[0])
+        counter.add_(1)
+        sq = self.cg.compose2_eager(self.r, self.r)
+        self._set_r(self.cg.compose2_eager(sq, t))
+
+    def _set_r(self, out: BForm) -> None:
+        for dst, src in zip(self.r, out):
+            dst.copy_(src)
+
+    def run(self, bank: BForm, r: BForm, sched) -> BForm:
+        """wnaf_segment(cg, bank, r, sched) on this state, as fresh tensors."""
+        rows = wnaf_plan(sched, self.nslots)
+        step_s, step_sc = self.step_s, self.step_sc
+        with trace.span("graphs.ladder", {"lanes": self.r.a.shape[0], "steps": len(sched)}):
+            self._load(bank, r)
+            at = 0
+            for d in sched:
+                if d:
+                    if at % PLAN_ROWS == 0:
+                        self._upload(rows[at:at + PLAN_ROWS])
+                    at += 1
+                    step_sc()
+                else:
+                    step_s()
+            return BForm(*(x.clone() for x in self.r))
+
+
+class LadderGraphs(LadderSteps):
+    """The wNAF ladder's two steps captured at one (device, batch shape,
+    bank slots) of a CG; `steps` counts their launches."""
+
+    def __init__(self, cg, bank: BForm, r: BForm):
+        dev = r.a.device
+        if dev.type != "cuda":
+            raise ValueError(f"LadderGraphs captures CUDA graphs: the ladder lies "
+                             f"on {dev}; on the CPU it runs eagerly")
+        B = r.a.shape[0]
+        with torch.cuda.device(dev), torch.inference_mode(False), torch.no_grad():
+            super().__init__(cg, bank, r)
+            # the warm-ups step from the bank's first slot (the call's base),
+            # not from the caller's r (the decrypt's is the identity), so the
+            # first eager operands at this batch, which chip_smoke.py
+            # records, are a ladder's own
+            self._load(bank, BForm(*(x[0] for x in bank)))
+            self._s = _Captured(self, dev, self.square, f"the ladder's square at batch {B}")
+            self._sc = _Captured(self, dev, self.square_mul,
+                                 f"the ladder's square and multiply at batch {B}")
+        self.step_s, self.step_sc = self._s.graph.replay, self._sc.graph.replay
+        self._lock = threading.Lock()
+
+    @property
+    def steps(self) -> int:
+        return self._s.launches.replays + self._sc.launches.replays
+
+    @property
+    def launches(self) -> tuple:
+        """The launch records of S and SC."""
+        return self._s.launches, self._sc.launches
+
+    def run(self, bank: BForm, r: BForm, sched) -> BForm:
+        with self._lock, torch.cuda.device(self.device):
+            out = super().run(bank, r, sched)
+            nonzero = sum(1 for d in sched if d)
+            self._s.launches.replays += len(sched) - nonzero
+            self._sc.launches.replays += nonzero
+        return out
+
+
 class ComposeGraphs:
-    """A CG's compose2 graphs, one per (device, batch shape), built at
-    first use; `graphs` maps each key to its ComposeGraph."""
+    """A CG's graphs, built at first use: `graphs` maps each (device, batch
+    shape) to its ComposeGraph, `ladders` each (device, bank shape) to its
+    LadderGraphs."""
 
     def __init__(self, cg):
         self.cg = cg
         self.graphs: dict = {}
+        self.ladders: dict = {}
         self._lock = threading.Lock()
 
     def run(self, F1: BForm, F2: BForm) -> BForm:
@@ -173,3 +350,12 @@ class ComposeGraphs:
             if g is None:
                 g = self.graphs[key] = ComposeGraph(self.cg, F1, F2)
             return g.run(F1, F2)
+
+    def run_ladder(self, bank: BForm, r: BForm, sched) -> BForm:
+        """wnaf_segment(cg, bank, r, sched) by the ladder's step graphs."""
+        key = (r.a.device,) + tuple(bank.a.shape)
+        with self._lock:
+            lg = self.ladders.get(key)
+            if lg is None:
+                lg = self.ladders[key] = LadderGraphs(self.cg, bank, r)
+        return lg.run(bank, r, sched)

@@ -10,7 +10,8 @@ cofhe_tpu/ops/nupow2.py).
   bank, then one nudupl per digit and one compose per nonzero digit
   (`make_wnaf_bank` + `wnaf_segment`, or both in one call,
   `nupow_shared_wnaf2`). The digit schedule is host data, so the
-  per-digit branch is a Python `if`.
+  per-digit branch is a Python `if` (on the card, the choice of one of
+  two captured step graphs).
 
 Every step ends on reduced forms, so results equal core.qfi.nupow.
 """
@@ -134,7 +135,11 @@ def make_wnaf_bank(cg: CG, base: BForm, w: int = 5) -> BForm:
 
 def wnaf_segment(cg: CG, bank: BForm, r: BForm, sched) -> BForm:
     """r <- r^(2^len(sched)) * prod(bank digits): one nudupl per digit,
-    then a compose with bank[(|d|-1)/2] (inverted for d < 0) when d != 0."""
+    then a compose with bank[(|d|-1)/2] (inverted for d < 0) when d != 0.
+    On a CUDA device with the CG's graphs, one launch of a captured step a
+    digit with the state on the card (ops/graphs.py `LadderGraphs`)."""
+    if cg.graphs and r.a.is_cuda:
+        return cg.compose_graphs.run_ladder(bank, r, sched)
     for d in sched:
         r = cg.nudupl2(r)
         if d != 0:

@@ -141,16 +141,17 @@ def count_calls(cuda_group, graphs) -> dict:
     first tensor operand), apart from cuda_group's own counters: each call of a
     dispatcher outside a graph capture (one launch on a card, the plain
     version on the CPU) and, for each replay of a
-    compose2 graph, each kernel it captured. On a card the counts must
+    compose2 graph or launch of a ladder step graph, each kernel it
+    captured. On a card the counts must
     equal cuda_group.LAUNCHES; `.clear()` the dict to start over."""
     import torch
 
     calls: dict = {}
     lock = threading.Lock()
 
-    def add(key: str) -> None:
+    def add(key: str, n: int = 1) -> None:
         with lock:
-            calls[key] = calls.get(key, 0) + 1
+            calls[key] = calls.get(key, 0) + n
 
     for name, attr in DISPATCHERS.items():
         def counted(*a, _orig=getattr(cuda_group, attr), _name=name, **kw):
@@ -169,6 +170,17 @@ def count_calls(cuda_group, graphs) -> dict:
         return out
 
     graphs.ComposeGraph.run = replayed
+    ladder = graphs.LadderGraphs.run
+
+    def laddered(lg, *a, **kw):
+        before = [rec.replays for rec in lg.launches]
+        out = ladder(lg, *a, **kw)
+        for rec, b in zip(lg.launches, before):
+            for (name, _, _, batch), c in rec.per_replay.items():
+                add(f"{name}@{batch}", c * (rec.replays - b))
+        return out
+
+    graphs.LadderGraphs.run = laddered
     return calls
 
 
