@@ -2577,7 +2577,7 @@ def compose2_npt() -> dict:
 
 def kernel_instance(mangled: str):
     """(kernel, template arguments) of a K5m, K5d, K4, KT, K7 or K6a-K6e
-    instance's mangled name (K6d and K6e: no template), else None."""
+    instance's mangled name (K6d: no template), else None."""
     m = re.search(r"(mag_mul|divexact_odd|redc_mod|reduce_exact|lehmer_euclid_walk|"
                   r"lehmer_euclid_finish|canon_sm|compose_prologue|gcd_bridge|gcd2_merge|"
                   r"c3_operands)_kernel(?:I((?:Li\d+E)+)E)?", mangled)

@@ -25,6 +25,15 @@
 // What bounds it on this card: its bytes (a3 and csum read once, two Lm
 // rows written), a few operations a limb; at the main path's 128-256
 // rows one launch, where the torch ops took ~30.
+//
+// Two classes of instance, the same code: rows staged for 288 limbs
+// (NPT = 9 limbs a thread; L, Lm <= 288, every k=128 width) and for 320
+// (NPT = 10: compose2 at k=256, a3 (B, 160) and csum (B, 296)). The
+// template argument names the class in the profiler
+// (c3_operands_kernel<10> is wide); a narrow instance keeps its 9 KB of
+// shared memory, a wide one takes 10 KB. The shift counts stay below
+// 16 * 320 and every limb is read from shared memory, so nothing else
+// depends on the width.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -33,8 +42,9 @@
 
 namespace {
 
-constexpr int kWarps = 4;       // batch rows (warps) a block
-constexpr int kMaxLimbs = 288;  // either row's width at most
+constexpr int kWarps = 4;  // batch rows (warps) a block
+constexpr int kNarrow = 9; // limbs a thread of the narrow class: rows <= 288
+constexpr int kWide = 10;  // and of the wide one: rows <= 320
 
 struct Params {
   const int* a3;    // (B, L)
@@ -55,8 +65,9 @@ __device__ __forceinline__ void shr_dyn(const int* s, int n, int bits, int* out,
   }
 }
 
+template <int NPT>
 __global__ void __launch_bounds__(32 * kWarps) c3_operands_kernel(const Params p) {
-  __shared__ int stage[kWarps][2][kMaxLimbs];
+  __shared__ int stage[kWarps][2][32 * NPT];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long b = (long long)blockIdx.x * kWarps + warp;
   if (b >= p.B) return;
@@ -83,16 +94,20 @@ __global__ void __launch_bounds__(32 * kWarps) c3_operands_kernel(const Params p
 
 // Plain C entry point (bound with ctypes): a3 ((B, L) int32), csum ((B,
 // Lm) int32), then the outputs csum_sh and a3_odd ((B, Lm) int32), all
-// contiguous device rows of canonical limbs. 1 <= L, Lm <= 288. Returns
-// cudaGetLastError() after the launch; cudaErrorInvalidValue for sizes
-// outside that.
+// contiguous device rows of canonical limbs. 1 <= L, Lm <= 320 (the wide
+// class where either passes 288). Returns cudaGetLastError() after the
+// launch; cudaErrorInvalidValue for sizes outside that.
 extern "C" int c3_operands_launch(const int* a3, const int* csum, int* csum_sh,
                                   int* a3_odd, int B, int L, int Lm, void* stream) {
   if (B <= 0) return 0;
-  if (L < 1 || L > kMaxLimbs || Lm < 1 || Lm > kMaxLimbs)
+  if (L < 1 || L > 32 * kWide || Lm < 1 || Lm > 32 * kWide)
     return (int)cudaErrorInvalidValue;
   const Params p{a3, csum, csum_sh, a3_odd, B, L, Lm};
   const int blocks = (B + kWarps - 1) / kWarps;
-  c3_operands_kernel<<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(p);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (L > 32 * kNarrow || Lm > 32 * kNarrow)
+    c3_operands_kernel<kWide><<<blocks, 32 * kWarps, 0, s>>>(p);
+  else
+    c3_operands_kernel<kNarrow><<<blocks, 32 * kWarps, 0, s>>>(p);
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,7 @@
 //           asked, (|v| >> shr) cut to Wshr limbs (limb.mag_shr_bits and
 //           limb.resize)
 //
-// for |v| < 2^(16 W), W <= 288. The sum is formed in registers, limb by
+// for |v| < 2^(16 W), W <= 320. The sum is formed in registers, limb by
 // limb in the int32 arithmetic of the plain version (wrapping, as torch's
 // int32 tensors do), and canonicalized by wl::canonicalize_rows, whose
 // floor passes, carry maps, sign and negation are those of
@@ -37,6 +37,14 @@
 // a five-level map scan and the sign's shuffle and ballot, about a
 // microsecond, where the torch ops it replaces took ~100 launches each.
 // No tensor cores (no products), no shared memory.
+//
+// Two classes of instance, the same code: NPT <= 9 (W <= 288, every k=128
+// sum) and NPT = 10 (289 <= W <= 320: compose2's csum at k=256, sq (B,
+// 296) + |Delta| / 4 at W = 296 from a (1, 320) row). NPT, the first
+// template argument, names the class in the profiler (canon_sm_kernel<10,
+// ...> is wide). Nothing bounds the width but the registers: the sums
+// wrap as the plain version's int32 sums do, and the floor passes and
+// the carry-map scan take rows of any width.
 
 #include "warp_limbs.cuh"
 
@@ -120,14 +128,14 @@ void launch(const Params& p, int rows, cudaStream_t s) {
 // with a null mag is absent; the first must be present), then the sign,
 // mag and shr outputs (shr null: not written); ints[9 r ..] = three terms'
 // (L, k, row stride). Every term's limbs have unit stride; the outputs
-// are contiguous (B,), (B, W) and (B, Wshr) int32. 1 <= W <= 288, 0 <=
+// are contiguous (B,), (B, W) and (B, Wshr) int32. 1 <= W <= 320, 0 <=
 // shr_bits < 16, Wshr <= W. Returns cudaGetLastError() after the launch;
 // cudaErrorInvalidValue for arguments outside that.
 extern "C" int canon_sm_launch(void* const* ptrs, const long long* ints,
                                int rows, int B, int W, int shr_bits, int Wshr,
                                void* stream) {
   if (B <= 0) return 0;
-  if (rows < 1 || rows > kRows || W < 1 || W > 288 || shr_bits < 0 ||
+  if (rows < 1 || rows > kRows || W < 1 || W > 320 || shr_bits < 0 ||
       shr_bits > 15 || Wshr < 0 || Wshr > W)
     return (int)cudaErrorInvalidValue;
   Params p{};
@@ -159,7 +167,7 @@ extern "C" int canon_sm_launch(void* const* ptrs, const long long* ints,
     launch<n>(p, rows, s);   \
     break;
     K6A_CASE(1) K6A_CASE(2) K6A_CASE(3) K6A_CASE(4) K6A_CASE(5) K6A_CASE(6)
-    K6A_CASE(7) K6A_CASE(8) K6A_CASE(9)
+    K6A_CASE(7) K6A_CASE(8) K6A_CASE(9) K6A_CASE(10)
 #undef K6A_CASE
     default: return (int)cudaErrorInvalidValue;
   }

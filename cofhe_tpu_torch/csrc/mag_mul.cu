@@ -24,10 +24,12 @@
 //
 // and the 16-bit limb l is c8[2l] + ((c8[2l+1] & 0xFF) << 8) + (c8[2l-1]
 // >> 8) (the JAX package's _from8). A product is at most 255^2 and a
-// column sums at most 576 of them, below 2^26, so P, the columns and the
-// s32 accumulators are exact, and every recombined limb is below 2^27,
-// nonnegative: wl::carry_nonneg then gives the canonical limbs and drops
-// what passes limb Lo - 1.
+// column sums at most 576 of them (2 x 288 bytes of the shorter row;
+// 640 = 2 x 320 in the wide instances: 640 x 255^2 < 4.2e7), below 2^26,
+// so P, the columns and the s32 accumulators are exact, and every
+// recombined limb is below 2^26 + 2^24 < 2^27, nonnegative:
+// wl::carry_nonneg then gives the canonical limbs and drops what passes
+// limb Lo - 1.
 //
 // Fragments (PTX ISA, mma.m16n8k32 with .u8; g = lane / 4, q = lane % 4):
 // - B: register r holds rows k = 4q + i (+ 16 for r = 1), column n = g:
@@ -51,7 +53,9 @@
 // past the longer row), so an n8 tile has ceil(min(2 nl + 31, 2 Lo - 32
 // J0) / 16) m-tiles. At compose2's shapes: 72x72->144 11 tiles,
 // 72x144->144 18, 72x144->200 20, 200x72->264 27, 136x136->264 36 (two n8
-// tiles); 288x288->288 60 (three).
+// tiles); 288x288->288 60 (three). At k=256 (L = 160): 80x80->160 12,
+// 80x160->160 20, 80x160->224 22, 224x80->296 30, 152x152->296 42 (two
+// n8 tiles, 21 each); 320x320->320 72 (three).
 //
 // Why mma.sync and not wgmma: a row has 11-60 tiles of 16 x 8 x 32 and the
 // rows are independent; wgmma's 64-row warpgroup tiles and shared-memory
@@ -69,23 +73,32 @@
 // lies between the batches measured; mag_mul_launch_split takes WPR
 // explicitly for that measurement.
 //
+// Two classes of instance, the same code: NPT <= 9 output limbs a thread
+// (Lo <= 288, every k=128 product) with rows staged for 288 limbs, and
+// NPT = 10 (289 <= Lo <= 320: compose2's t1 and sq at k=256, Lo = 296)
+// with rows staged for 320; the template's first argument, NPT, names
+// the class in the profiler (mag_mul_kernel<10, ...> is wide).
+//
 // What bounds it on this card: the function's bytes (two rows in, one
 // out); its 8-bit products at the int8 tensor-core rate take a tenth of
-// that. Shared memory: 3776 bytes a row, 15 KB a block.
+// that. Shared memory: 3776 bytes a row, 15 KB a block (narrow); 4096
+// bytes a row, 16 KB a block (wide).
 
 #include "warp_limbs.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;                 // warps a block
-constexpr int kMax = 288;                 // limbs a row at most
+constexpr int kNarrow = 288;              // limbs a row at most, NPT <= 9
+constexpr int kWide = 320;                // and with NPT = 10
 constexpr int kPad = 64;                  // zero bytes each side of the long row
-constexpr int kLongWords = (2 * kMax + 2 * kPad) / 4;  // 176
 constexpr int kShortWords = 3 * 64;       // three n8 tiles of eight 32-byte blocks
 constexpr int kSplitRows = 4096;          // WPR = 4 up to this many rows, else 2
 
+// the rows of an instance with NPT output limbs a thread: kMax limbs each
+template <int kMax>
 struct RowSmem {
-  uint32_t lng[kLongWords];   // byte kPad + 2 nl - 1 - y holds l8[y]
+  uint32_t lng[(2 * kMax + 2 * kPad) / 4];  // byte kPad + 2 nl - 1 - y holds l8[y]
   uint32_t sht[kShortWords];  // word w holds limbs 2w, 2w + 1 of the shorter row
   int col[2 * kMax];          // the 8-bit columns c8[k], k < 2 Lo
 };
@@ -107,13 +120,14 @@ mag_mul_kernel(const int* __restrict__ a, const int* __restrict__ b,
                int* __restrict__ out, int B, int La, int Lb, int sa, int sb,
                int Lo) {
   constexpr int kRows = kWarps / WPR;
-  __shared__ RowSmem sm[kRows];
+  using Smem = RowSmem<NPT <= 9 ? kNarrow : kWide>;
+  __shared__ Smem sm[kRows];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wi = warp % WPR;          // this warp's index among its row's
   const int tid = wi * 32 + lane;     // thread index among its row's
   const long long row = (long long)blockIdx.x * kRows + warp / WPR;
   const bool live = row < B;          // uniform over the row's warps
-  RowSmem& s = sm[warp / WPR];
+  Smem& s = sm[warp / WPR];
 
   int na = min(La, Lo), nb = min(Lb, Lo);
   const int* pl = a + row * sa;
@@ -219,12 +233,14 @@ int launch(const int* a, const int* b, int* out, int B, int La, int Lb,
 
 // a: (B, La) and b: (B, Lb) int32 rows at row strides sa, sb (unit limb
 // stride, any 4-byte alignment, 0 for a broadcast operand); out: (B, Lo)
-// contiguous. 1 <= Lo <= 288, La, Lb <= 288. wpr: warps a row, 1, 2 or 4.
+// contiguous. 1 <= Lo <= 320 (the wide class, NPT = 10, where Lo > 288);
+// La, Lb >= 1, of which min(La, Lo) and min(Lb, Lo) limbs are read. wpr:
+// warps a row, 1, 2 or 4.
 extern "C" int mag_mul_launch_split(const int* a, const int* b, int* out, int B,
                                     int La, int Lb, int sa, int sb, int Lo,
                                     int wpr, void* stream) {
   if (B <= 0) return 0;
-  if (La < 1 || Lb < 1 || La > kMax || Lb > kMax) return (int)cudaErrorInvalidValue;
+  if (La < 1 || Lb < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
   switch ((Lo + 31) / 32) {
@@ -233,7 +249,7 @@ extern "C" int mag_mul_launch_split(const int* a, const int* b, int* out, int B,
     rc = launch<n>(a, b, out, B, La, Lb, sa, sb, Lo, wpr, s);        \
     break;
     K5M_CASE(1) K5M_CASE(2) K5M_CASE(3) K5M_CASE(4) K5M_CASE(5) K5M_CASE(6)
-    K5M_CASE(7) K5M_CASE(8) K5M_CASE(9)
+    K5M_CASE(7) K5M_CASE(8) K5M_CASE(9) K5M_CASE(10)
 #undef K5M_CASE
     default: return (int)cudaErrorInvalidValue;
   }

@@ -28,14 +28,23 @@
 // shape: four lanes a block. At 128-256 lanes a warp's loop is latency
 // bound, and one, two or four lanes a block measured within 3% of each
 // other on the main path's operands (PERF.md), so the shape is fixed.
+//
+// Two classes of instance, the same code: FULL = 9 limbs a thread over a
+// whole row (L <= 288, every k=128 width) and FULL = 10 (289 <= L <= 320:
+// compose2's mu at k=256, x (B, 296) mod m (B, 160)). FULL is the first
+// template argument, so the profiler's kernel names tell the classes
+// apart (mod_topdown_kernel<10, ...> is wide); a narrow instance keeps
+// its 4 x 288-limb row buffer. Overflow: the window's products are
+// 64-bit (|x_k| + 2^28 * 2^16 < 2^45 at either width) and the spread
+// leaves limbs within 3 * 2^15, so nothing depends on the row's width.
 
 #include "warp_limbs.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;      // lanes (warps) per block
-constexpr int kMaxLimbs = 288; // 9 limbs x 32 threads
-constexpr int kFull = 9;       // limbs a thread over a whole row
+constexpr int kNarrow = 9;     // limbs a thread over a whole row: 288
+constexpr int kWide = 10;      // and in the wide class: 320
 constexpr float kDigitLim = 268435455.0f;  // 2^28 - 1
 
 // rl.log2f_i
@@ -53,13 +62,13 @@ __device__ __forceinline__ int digit_at(float ratio, int ebits, int j) {
   return (int)fminf(fmaxf(qd, -kDigitLim), kDigitLim);
 }
 
-template <int NPW>
+template <int kFull, int NPW>
 __global__ void __launch_bounds__(kWarps * 32)
     mod_topdown_kernel(const int* __restrict__ x_in,
                        const int* __restrict__ m_in, int* __restrict__ out,
                        int* __restrict__ iters_out, int B, int L, int Lm,
                        int max_iters) {
-  __shared__ int rowbuf[kWarps][kMaxLimbs];
+  __shared__ int rowbuf[kWarps][32 * kFull];
   const int warp_in_block = threadIdx.x >> 5;
   const int row = (int)(blockIdx.x * kWarps + warp_in_block);
   const int lane = threadIdx.x & 31;
@@ -151,37 +160,52 @@ __global__ void __launch_bounds__(kWarps * 32)
   wl::store_row<kFull>(x, out + (size_t)row * L, L, lane);
 }
 
-template <int NPW>
-void launch(const int* x, const int* m, int* out, int* iters, int B, int L,
-            int Lm, int max_iters, cudaStream_t stream) {
-  const int blocks = (B + kWarps - 1) / kWarps;
-  mod_topdown_kernel<NPW><<<blocks, kWarps * 32, 0, stream>>>(
-      x, m, out, iters, B, L, Lm, max_iters);
+template <int kFull, int NPW>
+int launch(const int* x, const int* m, int* out, int* iters, int B, int L,
+           int Lm, int max_iters, cudaStream_t stream) {
+  if constexpr (NPW > kFull) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const int blocks = (B + kWarps - 1) / kWarps;
+    mod_topdown_kernel<kFull, NPW><<<blocks, kWarps * 32, 0, stream>>>(
+        x, m, out, iters, B, L, Lm, max_iters);
+    return 0;
+  }
+}
+
+// the window's instance of one class: NPW = ceil((Lm + 3) / 32) <= kFull
+template <int kFull>
+int launch_class(const int* x, const int* m, int* out, int* iters, int B,
+                 int L, int Lm, int max_iters, cudaStream_t s) {
+  switch ((Lm + 3 + 31) / 32) {
+#define K2_CASE(n) \
+  case n: return launch<kFull, n>(x, m, out, iters, B, L, Lm, max_iters, s);
+    K2_CASE(1) K2_CASE(2) K2_CASE(3) K2_CASE(4) K2_CASE(5) K2_CASE(6)
+    K2_CASE(7) K2_CASE(8) K2_CASE(9) K2_CASE(10)
+#undef K2_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). x: contiguous int32 (B, L) on the
-// device, m: contiguous int32 (B, Lm) with Lm < L <= 288 and Lm <= 285;
-// out: (B, L); iters, when not null, receives each row's number of loop
-// iterations. Returns cudaGetLastError() after the launch (0 on success);
-// 1 (cudaErrorInvalidValue) for unsupported widths.
+// device, m: contiguous int32 (B, Lm) with Lm < L <= 320, Lm <= 285 for
+// the narrow class (L <= 288) and Lm <= 317 for the wide one; out: (B, L);
+// iters, when not null, receives each row's number of loop iterations.
+// Returns cudaGetLastError() after the launch (0 on success); 1
+// (cudaErrorInvalidValue) for unsupported widths.
 extern "C" int mod_topdown_launch(const int* x, const int* m, int* out,
                                   int* iters, int B, int L, int Lm,
                                   int max_iters, void* stream) {
   if (B <= 0) return 0;
-  if (Lm < 1 || Lm >= L || L > kMaxLimbs || Lm > 32 * kFull - 3)
+  const bool wide = L > 32 * kNarrow;
+  const int full = wide ? kWide : kNarrow;
+  if (Lm < 1 || Lm >= L || L > 32 * kWide || Lm > 32 * full - 3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch ((Lm + 3 + 31) / 32) {
-#define K2_CASE(n)                                                        \
-  case n:                                                                 \
-    launch<n>(x, m, out, iters, B, L, Lm, max_iters, s);                  \
-    break;
-    K2_CASE(1) K2_CASE(2) K2_CASE(3) K2_CASE(4) K2_CASE(5) K2_CASE(6)
-    K2_CASE(7) K2_CASE(8) K2_CASE(9)
-#undef K2_CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int rc = wide ? launch_class<kWide>(x, m, out, iters, B, L, Lm, max_iters, s)
+                      : launch_class<kNarrow>(x, m, out, iters, B, L, Lm, max_iters, s);
+  if (rc) return rc;
   return (int)cudaGetLastError();
 }

@@ -106,6 +106,16 @@ launches are recorded into the graph's key list instead, and the graph's
 once a replay. A replay only bumps that count; `LAUNCHES` and
 `LAUNCHES_BY_KEY` add each graph's keys times its replays when they are
 read, and fold a freed graph's into the eager counts.
+
+Rows of up to NARROW_LIMBS = 288 limbs (9 a thread) fit every kernel.
+K2, K5m, K6a and K6e (`WIDE_KERNELS`) have a second compiled instance of
+the same code at 10 limbs a thread, for rows of 289 to MAX_LIMBS = 320
+limbs (compose2 at sec=128, k=128 runs none; at k=256 its Lm is 296 and
+|Delta| / 4 has 320 limbs). The row width alone chooses the instance
+(`wide_key`); `WIDE_LAUNCHES` counts the wide instances' launches by
+kernel, read like `LAUNCHES`. K5d reads only the quotient's limbs of its
+rows, so it takes dividends and divisors of up to MAX_LIMBS limbs (c3's at
+k=256: (296, 296) -> 160) with quotients of up to NARROW_LIMBS.
 """
 
 from __future__ import annotations
@@ -130,7 +140,9 @@ from .forms import BForm, reduce_batch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cofhe_tpu_torch")
-MAX_LIMBS = 288  # 9 limbs per thread x 32 threads
+NARROW_LIMBS = 288  # 9 limbs per thread x 32 threads: every kernel
+MAX_LIMBS = 320  # 10 limbs per thread: the wide instances of WIDE_KERNELS
+WIDE_KERNELS = ("mod_topdown", "mag_mul", "canon_sm", "c3_operands")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -200,14 +212,26 @@ def _add_replays(by_key: dict, g: GraphLaunches) -> None:
             by_key[key] = by_key.get(key, 0) + c * n
 
 
+def wide_key(key: tuple) -> bool:
+    """Whether launch key (name, width, extra, batch) ran a wide instance
+    (rows past NARROW_LIMBS): K2 by x's width, K5m by the output's, K6a
+    by the sum's, K6e by the wider of a3 (extra) and csum."""
+    name, width = key[0], key[1]
+    if name == "c3_operands":
+        width = max(width, key[2])
+    return name in WIDE_KERNELS and width > NARROW_LIMBS
+
+
 class _Launches(Mapping):
     """Launches so far, read-only: by kernel name (every kernel, 0 where
-    none ran) or by key. The eager launches counted as they run, plus each
-    graph's launches a replay times its replays since the last reset, added
-    when read; a freed graph's are folded into the eager counts."""
+    none ran; with `wide`, the five kernels that have a wide instance and
+    only the launches of it) or by key. The eager launches counted as they
+    run, plus each graph's launches a replay times its replays since the
+    last reset, added when read; a freed graph's are folded into the eager
+    counts."""
 
-    def __init__(self, by_name: bool):
-        self._by_name = by_name
+    def __init__(self, by_name: bool, wide: bool = False):
+        self._by_name, self._wide = by_name, wide
 
     def _read(self) -> dict:
         with _GRAPHS_LOCK:
@@ -219,9 +243,10 @@ class _Launches(Mapping):
                 _add_replays(by_key, g)
         if not self._by_name:
             return by_key
-        by_name = dict.fromkeys(KERNELS, 0)
+        by_name = dict.fromkeys(WIDE_KERNELS if self._wide else KERNELS, 0)
         for key, c in by_key.items():
-            by_name[key[0]] += c
+            if not self._wide or wide_key(key):
+                by_name[key[0]] += c
         return by_name
 
     def __getitem__(self, key):
@@ -237,6 +262,8 @@ class _Launches(Mapping):
 LAUNCHES = _Launches(by_name=True)
 # launches by (kernel, width, extra, batch)
 LAUNCHES_BY_KEY = _Launches(by_name=False)
+# launches of the wide instances, by kernel name (WIDE_KERNELS)
+WIDE_LAUNCHES = _Launches(by_name=True, wide=True)
 
 
 def reset_launches() -> None:
@@ -412,8 +439,8 @@ def xgcd_coeff_g_cuda(f_mag, g_mag, m_mag, nbits: int, need_u: bool = False,
     B, W = f_mag.shape
     if g_mag.shape != (B, W) or m_mag.shape != (B, W):
         raise ValueError("xgcd_coeff_g: f, g and m must share one (B, W) shape")
-    if not 1 <= W <= MAX_LIMBS:
-        raise ValueError(f"xgcd_coeff_g: width {W} outside [1, {MAX_LIMBS}]")
+    if not 1 <= W <= NARROW_LIMBS:
+        raise ValueError(f"xgcd_coeff_g: width {W} outside [1, {NARROW_LIMBS}]")
     d = torch.empty_like(f_mag)
     cg = torch.empty_like(f_mag)
     cu = torch.empty_like(f_mag) if need_u else None
@@ -443,14 +470,15 @@ def mod_topdown_cuda(x, m_mag, max_iters: int, iters=None):
     """K2 on the card: same contract and output as rl.mod_topdown28 (and
     rl.mod_topdown). `iters`, if given, receives each row's number of loop
     iterations."""
-    _check("mod_topdown", x, m_mag)
-    B, L = x.shape
-    Lm = m_mag.shape[1]
+    B, L = x.shape[0], x.shape[-1]
+    Lm = m_mag.shape[-1]
     if m_mag.shape[0] != B:
         raise ValueError("mod_topdown: x and m must share the batch size")
-    if not 1 <= Lm < L <= MAX_LIMBS or Lm > MAX_LIMBS - 3:
+    full = NARROW_LIMBS if L <= NARROW_LIMBS else MAX_LIMBS  # the row's class
+    if not 1 <= Lm < L <= MAX_LIMBS or Lm > full - 3:
         raise ValueError(f"mod_topdown: need 1 <= Lm < Lx <= {MAX_LIMBS} and "
-                         f"Lm <= {MAX_LIMBS - 3}, got Lm={Lm}, Lx={L}")
+                         f"Lm <= {full - 3}, got Lm={Lm}, Lx={L}")
+    _check("mod_topdown", x, m_mag)
     out = torch.empty_like(x)
     _launch(("mod_topdown", L, Lm, B), x, x.data_ptr(), m_mag.data_ptr(),
             out.data_ptr(), _iters_ptr(iters, B, x), B, L, Lm, int(max_iters))
@@ -484,8 +512,8 @@ def reduce2_grouped_loop_cuda(a, b, c, dD_mant: float, dD_top: int,
     B, L = a.shape
     if b.shape != (B, L) or c.shape != (B, L):
         raise ValueError("reduce2_grouped: a, b and c must share one shape")
-    if not 1 <= L <= MAX_LIMBS:
-        raise ValueError(f"reduce2_grouped: width {L} outside [1, {MAX_LIMBS}]")
+    if not 1 <= L <= NARROW_LIMBS:
+        raise ValueError(f"reduce2_grouped: width {L} outside [1, {NARROW_LIMBS}]")
     ao, bo, co = torch.empty_like(a), torch.empty_like(b), torch.empty_like(c)
     _launch(("reduce2_grouped", L, 0, B), a, a.data_ptr(), b.data_ptr(),
             c.data_ptr(), ao.data_ptr(), bo.data_ptr(), co.data_ptr(),
@@ -525,8 +553,8 @@ def reduce_exact_cuda(a, b, c, max_iters: int, iters=None) -> BForm:
     B, L = a.shape
     if b.shape != (B, L) or c.shape != (B, L):
         raise ValueError("reduce_exact: a, b and c must share one shape")
-    if not 1 <= L <= MAX_LIMBS:
-        raise ValueError(f"reduce_exact: width {L} outside [1, {MAX_LIMBS}]")
+    if not 1 <= L <= NARROW_LIMBS:
+        raise ValueError(f"reduce_exact: width {L} outside [1, {NARROW_LIMBS}]")
     ao, bo, co = torch.empty_like(a), torch.empty_like(b), torch.empty_like(c)
     bs = torch.empty(B, dtype=torch.int32, device=a.device)
     _launch(("reduce_exact", L, 0, B), a, a.data_ptr(), b.data_ptr(),
@@ -589,9 +617,10 @@ def mag_divexact_odd_cuda(x, y, L_out: int):
     x, y, lead = _broadcast("mag_divexact_odd", x, y)
     if L_out > Lx:
         raise ValueError(f"L_out {L_out} exceeds the dividend width {Lx}")
-    if not 1 <= L_out <= MAX_LIMBS or max(Lx, Ly) > MAX_LIMBS or Ly < 1:
-        raise ValueError(f"mag_divexact_odd: widths Lx={Lx}, Ly={Ly}, "
-                         f"L_out={L_out} outside [1, {MAX_LIMBS}]")
+    if not 1 <= L_out <= NARROW_LIMBS or max(Lx, Ly) > MAX_LIMBS or Ly < 1:
+        raise ValueError(f"mag_divexact_odd: widths Lx={Lx}, Ly={Ly} outside "
+                         f"[1, {MAX_LIMBS}] or L_out={L_out} outside "
+                         f"[1, {NARROW_LIMBS}]")
     xr, sx = _rows("mag_divexact_odd", x)
     yr, sy = _rows("mag_divexact_odd", y, xr)
     B = xr.shape[0]
@@ -624,9 +653,9 @@ def redc_mod_cuda(x, d_mag, steps: int, active=None):
         raise ValueError(f"redc_mod: (B, Lx) x and (B, Ld) d required, got "
                          f"{tuple(x.shape)} and {tuple(d_mag.shape)}")
     Lx, Ld = x.shape[1], d_mag.shape[1]
-    if not 1 <= Ld <= Lx or steps < 0 or max(Lx, steps + Ld) + 1 > MAX_LIMBS:
+    if not 1 <= Ld <= Lx or steps < 0 or max(Lx, steps + Ld) + 1 > NARROW_LIMBS:
         raise ValueError(f"redc_mod: need 1 <= Ld <= Lx and max(Lx, steps + Ld) "
-                         f"< {MAX_LIMBS}, got Lx={Lx}, Ld={Ld}, steps={steps}")
+                         f"< {NARROW_LIMBS}, got Lx={Lx}, Ld={Ld}, steps={steps}")
     xr, sx = _rows("redc_mod", x)
     dr, sd = _rows("redc_mod", d_mag, xr)
     B = xr.shape[0]
@@ -670,8 +699,8 @@ def lehmer_euclid_cuda(r0_mag, r1_mag, bits_stop, max_groups: int,
     dev = r0_mag.device
     if r1_mag.shape != (B, L):
         raise ValueError("lehmer_euclid: r0 and r1 must share one (B, L) shape")
-    if not 1 <= L <= MAX_LIMBS:
-        raise ValueError(f"lehmer_euclid: width {L} outside [1, {MAX_LIMBS}]")
+    if not 1 <= L <= NARROW_LIMBS:
+        raise ValueError(f"lehmer_euclid: width {L} outside [1, {NARROW_LIMBS}]")
     if bits_stop.shape != (B,) or bits_stop.dtype != torch.float32 \
             or bits_stop.device != dev:
         raise ValueError("lehmer_euclid: bits_stop must be a (B,) float32 "
@@ -848,8 +877,8 @@ def compose_prologue_cuda(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int,
             raise ValueError("compose_prologue: h and h2 must be single forms "
                              f"of {L} limbs")
         ins += [x.contiguous() for x in F]
-    if not 1 <= Lh <= L <= MAX_LIMBS or B * L >= 1 << 31:
-        raise ValueError(f"compose_prologue: need 1 <= Lh <= L <= {MAX_LIMBS} and "
+    if not 1 <= Lh <= L <= NARROW_LIMBS or B * L >= 1 << 31:
+        raise ValueError(f"compose_prologue: need 1 <= Lh <= L <= {NARROW_LIMBS} and "
                          f"B L < 2^31, got B={B}, L={L}, Lh={Lh}")
     if any(x.device != dev or x.dtype != torch.int32 for x in ins) or dev.type != "cuda":
         raise ValueError("compose_prologue: int32 tensors on one CUDA device required")
@@ -905,8 +934,8 @@ def gcd_bridge_cuda(d1_w, beta_w, id1, id2, Lh: int, narrow=None):
     dev = d1_w.device
     if beta_w.shape != (B, L):
         raise ValueError("gcd_bridge: d1_w and beta_w must share one (B, L) shape")
-    if not 8 <= Lh <= L <= MAX_LIMBS:
-        raise ValueError(f"gcd_bridge: need 8 <= Lh <= L <= {MAX_LIMBS}, got L={L}, Lh={Lh}")
+    if not 8 <= Lh <= L <= NARROW_LIMBS:
+        raise ValueError(f"gcd_bridge: need 8 <= Lh <= L <= {NARROW_LIMBS}, got L={L}, Lh={Lh}")
     _bool_rows("gcd_bridge", B, dev, id1, id2)
     ins = [d1_w, beta_w, id1, id2]
     Lxn = 0
@@ -959,9 +988,9 @@ def gcd2_merge_cuda(g8, eta0_8, gF, eta0F, fits8):
     B, W8 = g8.shape
     Lh = gF.shape[1]
     if eta0_8.shape != (B, W8) or gF.shape != (B, Lh) or eta0F.shape != (B, Lh) \
-            or not 1 <= W8 <= Lh <= MAX_LIMBS:
+            or not 1 <= W8 <= Lh <= NARROW_LIMBS:
         raise ValueError("gcd2_merge: (B, W8) g8, eta0_8 and (B, Lh) gF, eta0F "
-                         f"required, 1 <= W8 <= Lh <= {MAX_LIMBS}")
+                         f"required, 1 <= W8 <= Lh <= {NARROW_LIMBS}")
     _bool_rows("gcd2_merge", B, g8.device, fits8)
     g, eta0 = torch.empty_like(gF), torch.empty_like(eta0F)
     ins = (g8, eta0_8, gF, eta0F, fits8)
@@ -990,12 +1019,12 @@ def c3_operands_cuda(a3, csum):
     """K6e on the card: c3_operands_plain's (csum >> min(e, 16 Lm - 1),
     a3 >> e at Lm limbs), e = v2(a3), of canonical (B, L) a3 and (B, Lm)
     csum."""
-    _check("c3_operands", a3, csum)
-    B, L = a3.shape
-    Lm = csum.shape[1]
+    B, L = a3.shape[0], a3.shape[-1]
+    Lm = csum.shape[-1]
     if csum.shape[0] != B or not 1 <= L <= MAX_LIMBS or not 1 <= Lm <= MAX_LIMBS:
         raise ValueError(f"c3_operands: (B, L) a3 and (B, Lm) csum required, L and Lm "
                          f"in [1, {MAX_LIMBS}]")
+    _check("c3_operands", a3, csum)
     csum_sh, a3_odd = torch.empty_like(csum), torch.empty_like(csum)
     _launch(("c3_operands", Lm, L, B), a3, a3.data_ptr(), csum.data_ptr(),
             csum_sh.data_ptr(), a3_odd.data_ptr(), B, L, Lm)

@@ -40,7 +40,8 @@ same inputs and every rank returns the full result.
 Otherwise every rank runs the one-device path on the whole batch.
 
 While tracing is on (utils/trace.py) the engine records the spans
-`engine.part_decrypt` (part_decrypt_batch), `engine.recode` (the matmul's
+`engine.part_decrypt` (part_decrypt_batch, with the discriminant's bits
+`disc_bits` and the ladder's `lanes`), `engine.recode` (the matmul's
 signed-window recoding of the plaintext) and, per matmul chunk,
 `engine.matmul.chain`, `.ladder` and `.finalize`. The chain and ladder
 spans then end after a synchronize, so each holds its device work, and
@@ -262,7 +263,15 @@ class TorchEngine:
                        bform_to_forms(self._gather_rows(fm, batch))[:e - s])
         return out
 
-    @trace.traced("engine.part_decrypt")
+    def _part_decrypt_attrs(self, share: int, cts) -> dict:
+        """The `engine.part_decrypt` span's attributes: the discriminant's
+        bits and the ladder's lanes (its first chunk's bucket; 0 where no
+        ladder runs)."""
+        n = len(cts) if share else 0
+        return {"disc_bits": self.cg.disc_bits,
+                "lanes": _bucket(min(n, MAX_BATCH)) if n else 0}
+
+    @trace.traced("engine.part_decrypt", _part_decrypt_attrs)
     @torch.inference_mode()
     def part_decrypt_batch(self, share: int, cts):
         """d_i = c1^share for every ct (shared exponent, wNAF ladder)."""

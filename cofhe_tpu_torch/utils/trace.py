@@ -214,12 +214,16 @@ dropped = TRACER.dropped
 clear = TRACER.clear
 
 
-def traced(name: str):
-    """Decorator: each call of the function is a span `name`."""
+def traced(name: str, attrs=None):
+    """Decorator: each call of the function is a span `name`; `attrs`, if
+    given, maps the call's arguments to the span's attributes, and is
+    called only while tracing is on."""
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
-            with span(name):
+            with span(name) as sp:
+                if sp and attrs is not None:
+                    sp.attrs.update(attrs(*args, **kwargs))
                 return fn(*args, **kwargs)
         return call
     return wrap

@@ -12,7 +12,9 @@ into the 8-bit columns k = m0 + row + 32 J below 2 L_out. The columns are
 recombined into 16-bit limbs (c8[2l] + ((c8[2l+1] & 0xFF) << 8) + (c8[2l-1]
 >> 8)) and carried mod 2^(16 L_out).
 
-Checked at compose2's five product shapes and at chip_smoke.py's twenty
+Checked at compose2's five product shapes at k=128 and at k=256 (whose t1
+and sq, L_out = 296, run the wide instances), at all-0xFFFF rows of 288
+and 320 limbs, and at chip_smoke.py's twenty
 K5m edge shapes (widths 1 to 288, L_out below, at and above La + Lb), on
 edge operands (zero, all-0xFFFF limbs, 1, top limbs alone, limbs with bits
 above 16):
@@ -52,6 +54,10 @@ K5M_EDGE_SHAPES = ((1, 1, 1), (1, 1, 2), (1, 1, 3), (8, 8, 8), (8, 8, 16),
 # the tiles the kernel runs at compose2's shapes (its header)
 COMPOSE2_TILES = {(72, 72, 144): 11, (72, 144, 144): 18, (72, 144, 200): 20,
                   (200, 72, 264): 27, (136, 136, 264): 36}
+# compose2's products at sec=128, k=256 (L = 160, Lm = 296) and their tiles;
+# t1 and sq run the wide instances (L_out past 288)
+K256_TILES = {(80, 80, 160): 12, (80, 160, 160): 20, (80, 160, 224): 22,
+              (224, 80, 296): 30, (152, 152, 296): 42}
 
 LANE = np.arange(32)
 G, Q = LANE >> 2, LANE & 3  # groupID, threadID_in_group
@@ -272,6 +278,24 @@ def test_k5m_worst_columns_stay_in_bounds():
     assert int(model.col.max()) == 576 * 255 * 255
     assert got == [((1 << 16 * 288) - 1) ** 2 % (1 << 16 * 288)]
     assert model.tiles == [36, 20, 4]
+
+
+@pytest.mark.parametrize("La,Lb,Lo", sorted(K256_TILES))
+def test_k5m_tiles_at_k256_shapes(La, Lb, Lo):
+    model = check_product(La, Lb, Lo, seed=La * 1000 + Lb * 10 + Lo, B=4)
+    assert sum(model.tiles) == K256_TILES[(La, Lb, Lo)]
+
+
+def test_k5m_worst_columns_stay_in_bounds_at_320():
+    """The wide instances' widest rows: all-0xFFFF operands of 320 limbs
+    sum 640 products of 255^2 in the fullest column, still below 2^26;
+    three n8 tiles, 72 m-tiles."""
+    a = np.full((1, 320), 0xFFFF, dtype=np.int32)
+    model = Model(a, a.copy(), 320)
+    got = model.run()
+    assert int(model.col.max()) == 640 * 255 * 255 < COL_BOUND
+    assert got == [((1 << 16 * 320) - 1) ** 2 % (1 << 16 * 320)]
+    assert model.tiles == [40, 24, 8]
 
 
 def test_shapes_are_chip_smokes():

@@ -226,18 +226,19 @@ def test_dispatchers_route_cpu_to_plain_and_refuse_other_devices(monkeypatch):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
-    """No fallback: widths past 288 limbs, L_out above the dividend, d
-    wider than x and mismatched rows raise before any launch."""
+    """No fallback: widths past 320 limbs (the wide instances' bound), L_out
+    above the dividend, d wider than x and mismatched rows raise before
+    any launch."""
     with pytest.raises(ValueError, match="CUDA"):
         cuda_group.mag_mul_cuda(torch.zeros(2, 4, dtype=torch.int32),
                                 torch.zeros(2, 4, dtype=torch.int32))
-    big = torch.empty((2, 289), dtype=torch.int32, device="meta")
+    big = torch.empty((2, 321), dtype=torch.int32, device="meta")
     small = torch.empty((2, 8), dtype=torch.int32, device="meta")
     three = torch.empty((3, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="outside"):
         cuda_group.mag_mul_cuda(big, small, 100)
     with pytest.raises(ValueError, match="outside"):
-        cuda_group.mag_mul_cuda(small, small, 289)
+        cuda_group.mag_mul_cuda(small, small, 321)
     with pytest.raises(ValueError, match="do not broadcast"):
         cuda_group.mag_mul_cuda(small, three, 8)
     with pytest.raises(ValueError, match="do not broadcast"):

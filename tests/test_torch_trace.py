@@ -199,6 +199,24 @@ def test_traced_decorator_keeps_the_function():
     assert _names(trace.records()) == ["double"]
 
 
+def test_traced_attrs_are_computed_only_while_tracing():
+    calls = []
+
+    def attrs(x):
+        calls.append(x)
+        return {"x": x}
+
+    @trace.traced("triple", attrs)
+    def triple(x):
+        return 3 * x
+
+    assert triple(2) == 6 and calls == [] and trace.records() == []
+    with trace.enabled():
+        assert triple(3) == 9
+    (r,) = trace.records()
+    assert r.name == "triple" and r.attrs == {"x": 3} and calls == [3]
+
+
 def test_graph_replays_only_count_and_launches_add_them_when_read():
     key_a, key_b = ("mag_mul", 144, "72x72", 8), ("redc_mod", 72, 8, 8)
     before, before_a = dict(cuda_group.LAUNCHES), cuda_group.LAUNCHES_BY_KEY.get(key_a, 0)
@@ -223,6 +241,28 @@ class Graph:
     """A launch record's owner, as a ComposeGraph is."""
 
 
+def test_wide_launches_count_graph_replays_and_a_freed_graphs():
+    wide, narrow = ("mag_mul", 296, "152x152", 512), ("mag_mul", 264, "136x136", 512)
+    k6e = ("c3_operands", 296, 160, 512)
+    cuda_group.reset_launches()
+    assert dict(cuda_group.WIDE_LAUNCHES) == dict.fromkeys(cuda_group.WIDE_KERNELS, 0)
+    owner = Graph()
+    g = cuda_group.graph_launches(owner, [wide, narrow, wide, k6e])
+    g.replays += 3
+    assert cuda_group.WIDE_LAUNCHES["mag_mul"] == 6
+    assert cuda_group.WIDE_LAUNCHES["c3_operands"] == 3
+    assert cuda_group.LAUNCHES["mag_mul"] == 9  # the narrow ones count only there
+    del owner
+    gc.collect()
+    assert cuda_group.WIDE_LAUNCHES["mag_mul"] == 6 and g not in cuda_group._GRAPHS
+    cuda_group.count_launches([wide, ("mod_topdown", 296, 160, 512),
+                               ("mod_topdown", 264, 144, 512)])
+    assert dict(cuda_group.WIDE_LAUNCHES) == {"mod_topdown": 1, "mag_mul": 7,
+                                              "canon_sm": 0, "c3_operands": 3}
+    cuda_group.reset_launches()
+    assert set(cuda_group.WIDE_LAUNCHES.values()) == {0}
+
+
 def test_a_freed_graphs_launches_stay_counted():
     key = ("reduce2_grouped", 144, 0, 512)
     before = cuda_group.LAUNCHES_BY_KEY.get(key, 0)
@@ -239,6 +279,20 @@ def test_a_freed_graphs_launches_stay_counted():
 
 
 # ------------------------------------------------------------ the matmul
+
+
+def test_part_decrypt_span_gives_disc_bits_and_lanes(toy_port_cs):
+    cs, sk, pk = toy_port_cs
+    from cofhe_tpu_torch.tensor import Tensor
+
+    eng = cs._engine
+    cts = cs.encrypt_tensor(pk, Tensor([1, 2, 3], (1, 3))).data
+    with trace.enabled():
+        eng.part_decrypt_batch(sk, cts)
+        eng.part_decrypt_batch(0, cts)
+    spans = [r for r in trace.records() if r.name == "engine.part_decrypt"]
+    assert [r.attrs for r in spans] == [{"disc_bits": eng.cg.disc_bits, "lanes": 4},
+                                        {"disc_bits": eng.cg.disc_bits, "lanes": 0}]
 
 
 @pytest.fixture(scope="module")
