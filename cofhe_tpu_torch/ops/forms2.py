@@ -41,8 +41,11 @@ On a CUDA device, `CG.compose2` with the grouped reduction, with or
 without NUCOMP, replays one captured CUDA graph per batch size
 (ops/graphs.py), the counterpart of the JAX engine's jitted steps: that
 compose2 reads no value on the host, so the whole step is one device
-program. `CG(..., graphs=False)` runs it eagerly instead; `grouped=False`
-and the v1 code stay eager.
+program. Its kernels form a DAG: `CG.compose2_unreduced` forks the chains
+that lie off its critical path onto the device's side streams (`_Dag`,
+graphs.side_streams), which the graph captures as parallel branches.
+`CG(..., graphs=False)` runs it eagerly instead, with the same branches;
+`grouped=False` and the v1 code stay eager.
 
 The rho loops in torch ops test their exit condition on the host every
 `SYNC_EVERY` iterations; their bodies are fixed points on finished lanes,
@@ -60,7 +63,7 @@ from . import limb as lb
 from . import rl
 from .forms import BForm, bform_broadcast, bform_from_numpy, bform_select, \
     rotate_to_odd
-from .graphs import ComposeGraphs
+from .graphs import ComposeGraphs, side_streams
 
 I32 = torch.int32
 F32 = torch.float32
@@ -407,6 +410,62 @@ def _one_limbs_like(x, L: int):
     return lb.one_limbs(x.shape[:-1], L, x.device)
 
 
+class _Branch:
+    """One forked chain of compose2: `join()` returns its result, having
+    made the caller's stream wait for the chain's last launch on the card."""
+
+    __slots__ = ("out", "done", "cur")
+
+    def __init__(self, out, done=None, cur=None):
+        self.out, self.done, self.cur = out, done, cur
+
+    def join(self):
+        if self.done is not None:
+            self.cur.wait_event(self.done)
+            self.done = None
+        return self.out
+
+
+class _Dag:
+    """The fork sites of one compose2 (CG.compose2_unreduced). On a CUDA
+    tensor `fork(fn, *args)` makes one of the device's two side streams
+    (graphs.side_streams) wait for what the caller's current stream has
+    queued, enqueues fn(*args) there, marks fn's output tensors as used by
+    the caller's stream (record_stream: the allocator reuses them only
+    after the caller's last use), and records an event that the branch's
+    `join()` makes the caller's stream wait for; it holds the side
+    streams' lock meanwhile, so no capture in another thread takes in its
+    launches. The forks alternate between the two side streams, so two
+    branches forked one after the other run beside each other. Inside a
+    capture the side streams join it by these waits and allocate from the
+    graph's pool. The caller keeps fn's inputs alive until the join (in
+    compose2 they are its locals), so that no allocation on its stream
+    reuses them while the side stream may still read them. On the CPU
+    `fork` runs fn in line. `forks` counts the fork sites passed, on
+    either route."""
+
+    def __init__(self, ref: torch.Tensor):
+        self.forks = 0
+        self.cur = self.sides = None
+        if ref.device.type == "cuda":
+            self.cur = torch.cuda.current_stream(ref.device)
+            self.sides = side_streams(ref.device)
+
+    def fork(self, fn, *args) -> _Branch:
+        self.forks += 1
+        if self.sides is None:
+            return _Branch(fn(*args))
+        lock, *streams = self.sides
+        side = streams[self.forks % 2]
+        with lock:
+            side.wait_stream(self.cur)
+            with torch.cuda.stream(side):
+                out = fn(*args)
+            for t in out if isinstance(out, tuple) else (out,):
+                t.record_stream(self.cur)
+            return _Branch(out, side.record_event(), self.cur)
+
+
 class CGCtx:
     """Static widths for one discriminant."""
 
@@ -468,6 +527,8 @@ class CG:
         # narrow width of the first gcd (rotated-in c2 exceeds it only with
         # probability ~2^-400 for random class-group elements)
         self.Lxn = min(_r8(Lh + 16), L)
+        # the fork sites the last compose2 passed (_Dag)
+        self.branches = 0
 
     @classmethod
     def from_arrays(cls, disc_bits: int, delta4, h_rows, h2_rows,
@@ -594,10 +655,17 @@ class CG:
         """Everything before the reduction: the unreduced composed
         coefficients (a3, b3s, b3m, c3), the NUCOMP tail's operands
         (a1g, m2x2, mu) and the identity masks (id1, id2), in the JAX
-        function's order. It reads no value on the host."""
+        function's order. It reads no value on the host.
+
+        A DAG on the card: three chains off the critical path (the second
+        gcd's width-8 pipeline; t2 with its term of mu_red; m2, a1g and
+        m2x2) are forked onto side streams (_Dag) and joined where their
+        results are first read; the critical path stays on the caller's
+        stream. On the CPU each chain runs in line."""
         L, Lh = self.L, self.Lh
         (a1, b1s, b1m, c1, a2, b2s, b2m, c2, ss, sm, dds, ddm, id1,
          id2, *first) = self.compose2_prologue(F1, F2)
+        dag = _Dag(a1)
 
         # first gcd: d1 = gcd(a2, a1), beta = a1-coefficient mod a2; the
         # narrow pass takes every lane whose operands fit 16*Lxn-32 bits,
@@ -632,22 +700,45 @@ class CG:
             one_h = _one_limbs_like(d1, Lh)
             inv8 = torch.where(fits8[..., None], inv_d1, one_h)
             invF = torch.where(rare[..., None], inv_d1, one_h)
-        # sm is |s| >> 1 at Lh limbs (the prologue's)
-        rp_m = self._redc_mod(sm, d1_8h, fits8, inv8)
-        g8, eta8 = cuda_group.xgcd_coeff_g(d1_8, rp_m[..., :8].contiguous(),
-                                           d1_8, 136)
-        # rp carries 2^(-16 Lh): eta8 * rp ≡ g, so the same scale removal
-        # applies to eta8
-        eta0_8 = self._redc_mod(eta8, d1_8, fits8, inv8)
 
-        # ... and the same pipeline at width Lh on the rare rest (its xgcd
-        # leaves its loop at once when no lane needs it; its REDCs run on
-        # every lane, and K6d drops the lanes outside `rare`)
+        def pipeline8(sm, d1_8h, d1_8, fits8, inv8):
+            # sm is |s| >> 1 at Lh limbs (the prologue's)
+            rp_m = self._redc_mod(sm, d1_8h, fits8, inv8)
+            g8, eta8 = cuda_group.xgcd_coeff_g(d1_8, rp_m[..., :8].contiguous(),
+                                               d1_8, 136)
+            # rp carries 2^(-16 Lh): eta8 * rp ≡ g, so the same scale
+            # removal applies to eta8
+            return g8, self._redc_mod(eta8, d1_8, fits8, inv8)
+
+        # the width-8 pipeline beside the same pipeline at width Lh on the
+        # rare rest (its xgcd leaves its loop at once when no lane needs
+        # it; its REDCs run on every lane, and K6d drops the lanes outside
+        # `rare`)
+        p8 = dag.fork(pipeline8, sm, d1_8h, d1_8, fits8, inv8)
         rpF_m = self._redc_mod(sm, d1h, rare, invF)
         gF, etaF = cuda_group.xgcd_coeff_g(
             d1h, torch.where(rare[..., None], rpF_m, 0), d1h, 16 * Lh)
         eta0F = self._redc_mod(etaF, d1h, rare, invF)
+        g8, eta0_8 = p8.join()
         g, eta0 = cuda_group.gcd2_merge(g8, eta0_8, gF, eta0F, fits8)
+
+        def quotients(a2, a1, g):
+            # m2 = a2/g, a1g = a1/g (g odd: divides odd a2 via d1)
+            inv_g = lb.inv_pow2(g, L) if shared else None
+            m2 = lb.mag_divexact_odd(a2, g, L, inv=inv_g)
+            a1g = lb.mag_divexact_odd(a1, g, Lh, inv=inv_g)
+            _, m2x2 = cuda_group.canon_sm([(m2, None, 2)], L)  # m2 << 1
+            return m2, a1g, m2x2
+
+        Lu, Lm = self.Lu, self.Lm
+
+        def t2_term(eta0, c1, ss):
+            # mu_red's second term, 2*sign(s)*t2 at Lm limbs, t2 = eta0*c1
+            return 2 * (ss[..., None] * lb.resize(lb.mag_mul(eta0, c1, L), Lm))
+
+        # beside the xi chain: t2's term, and the quotients by g
+        t2_b = dag.fork(t2_term, eta0, c1, ss)
+        quot = dag.fork(quotients, a2, a1, g)
 
         # xi = (g - eta0*|s|) / d1 exactly (integer identity); |xi| <= |s|
         prod_es = lb.mag_mul(eta0, sm, L)
@@ -655,18 +746,10 @@ class CG:
         xi = lb.mag_divexact_odd(tm, d1, Lh, inv=inv_d1)
 
         # u = xi * beta ; mu_num = u*(b2-b1) - 2*sign(s)*eta0*c1
-        Lu, Lm = self.Lu, self.Lm
         u = lb.mag_mul(xi, beta, Lu)
         t1 = lb.mag_mul(u, ddm, Lm)
-        t2 = lb.mag_mul(eta0, c1, L)
-        mu_red = ((xi_s * dds)[..., None] * t1
-                  - 2 * (ss[..., None] * lb.resize(t2, Lm)))
-
-        # m2 = a2/g, a1g = a1/g (g odd: divides odd a2 via d1)
-        inv_g = lb.inv_pow2(g, L) if shared else None
-        m2 = lb.mag_divexact_odd(a2, g, L, inv=inv_g)
-        a1g = lb.mag_divexact_odd(a1, g, Lh, inv=inv_g)
-        _, m2x2 = cuda_group.canon_sm([(m2, None, 2)], L)  # m2 << 1
+        mu_red = (xi_s * dds)[..., None] * t1 - t2_b.join()
+        m2, a1g, m2x2 = quot.join()
         mu = lb.resize(cuda_group.mod_topdown(mu_red, m2x2, self.mu_iters), L)
 
         # a3 = a1g*m2 ; b3 = b1 + a1g*mu ; c3 = ((b3/2)^2 + |D|/4)/a3
@@ -679,6 +762,7 @@ class CG:
         # K6e: with e = v2(a3), csum >> e and a3 >> e, both at Lm limbs
         csum_sh, a3_odd = cuda_group.c3_operands(a3, csum)
         c3 = lb.mag_divexact_odd(csum_sh, a3_odd, L)
+        self.branches = dag.forks
         return a3, b3s, b3m, c3, a1g, m2x2, mu, id1, id2
 
     def lehmer_operands(self, a1g, m2x2, mu):

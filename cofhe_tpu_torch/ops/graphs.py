@@ -8,13 +8,33 @@ The JAX package compiles each engine step, compose2 included, into one
 device program whose loops stay on the device. The port's eager compose2
 is a sequence of small torch kernels around the Hopper kernels; with KT
 for the exact tail, REDCs that run on every lane and, in the opt-in NUCOMP
-tail, K7 for the Lehmer walk, it reads no value on the host, so it is one
-fixed sequence of kernels, which a `torch.cuda.CUDAGraph` captures once
-and replays as one launch. A NUCOMP CG (`use_nucomp`) is a CG object of
-its own, with its own graphs and memory pools. Every caller of
-`CG.compose2` / `nudupl2` (the Yao ladder, the wNAF bank, the matmul's
-chain, ladder and finalization, add, combine, the sharded paths) takes the
-graph with no change of its own.
+tail, K7 for the Lehmer walk, it reads no value on the host, so its
+kernels are fixed, which a `torch.cuda.CUDAGraph` captures once and
+replays as one launch. They form a DAG, not one sequence: compose2 forks
+three chains that lie off its critical path (the second gcd's width-8
+pipeline; t2 with its term of mu_red; m2, a1g and m2x2) onto the device's
+two side streams (`side_streams`) and joins each where its result is
+first read (`forms2._Dag`), so the captured graph holds parallel branches
+and the card runs a branch's kernels beside the critical path. A capture
+runs on a stream of high priority (`CRITICAL_PRIORITY`) and the side
+streams take the lowest (`SIDE_PRIORITY`), which the graph keeps for each
+kernel: where both have blocks to place, the card places the critical
+path's first (at equal priority a branch slowed the critical path by as
+much as it saved). The branches keep these stream rules: a side stream
+first waits for what the caller's stream has queued; a branch's inputs
+stay alive until its join; its outputs are marked as used by the caller's
+stream (`record_stream`), so the allocator reuses them only after that
+stream's last use; every branch is joined before compose2 returns, so a
+capture ends with no side stream outside it, and a side stream's
+allocations inside a capture come from the graph's pool. A stream that
+joins a capture belongs to it until the capture ends, so the side streams
+have a lock: every capture holds it from its start to its end, and every
+fork while it enqueues, so no thread's eager compose2 enters another
+thread's capture. On the CPU the chains run in line. A NUCOMP CG (`use_nucomp`)
+is a CG object of its own, with its own graphs and memory pools. Every
+caller of `CG.compose2` / `nudupl2` (the Yao ladder, the wNAF bank, the
+matmul's chain, ladder and finalization, add, combine, the sharded paths)
+takes the graph with no change of its own.
 
 One `ComposeGraph` per (device, batch shape), held by the CG's
 `ComposeGraphs` and built at first use:
@@ -34,7 +54,8 @@ One `ComposeGraph` per (device, batch shape), held by the CG's
   to the graph's replays (its `cuda_group.GraphLaunches`, from which
   cuda_group.LAUNCHES counts the graph's kernels when read) and, while
   tracing is on, is a `graphs.replay` span (utils/trace.py) with the batch
-  as `lanes`, from the input copies to the clones enqueued.
+  as `lanes` and the captured compose2's fork sites as `branches`, from
+  the input copies to the clones enqueued.
 
 The shared-exponent wNAF ladder (`nupow2.wnaf_segment`: one nudupl a
 digit, then a compose with a bank slot or its inverse where the digit is
@@ -54,7 +75,8 @@ too (`LadderSteps`), which is how the tests drive them; `wnaf_segment`
 itself keeps its compose2 loop on the CPU and with `graphs=False`. A
 ladder call adds to its graphs' replays (`LadderGraphs.steps` is their
 sum; cuda_group.LAUNCHES counts their kernels) and, while tracing is on,
-is one `graphs.ladder` span with `lanes` and `steps` (its digits).
+is one `graphs.ladder` span with `lanes`, `steps` (its digits) and
+`branches` (the CG's compose2 fork sites, `CG.branches`).
 
 Captures use thread-local capture mode on a stream of their own, so a
 node runtime's other threads may keep using the card meanwhile; one lock
@@ -86,6 +108,28 @@ from .forms import BForm, bform_neg
 I32 = torch.int32
 # nonzero digits a plan upload holds; a longer exponent uploads again
 PLAN_ROWS = 1024
+# the priorities of compose2's streams (lower is higher; 0 is the lowest):
+# a capture's, which the graph keeps for compose2's critical path, and the
+# side streams' of its branches. Where a branch and the critical path both
+# have blocks to place, the card places the critical path's first.
+CRITICAL_PRIORITY, SIDE_PRIORITY = -1, 0
+# compose2's side streams by device: (lock, stream, stream)
+_SIDES: dict = {}
+_SIDES_MADE = threading.Lock()
+
+
+def side_streams(dev: torch.device) -> tuple:
+    """(lock, stream, stream): compose2's two side streams on CUDA device
+    `dev` (a tensor's, with its index), shared by every CG there, and their
+    lock (module docstring); made at the first compose2 on the device, an
+    eager call (a graph's warm-up comes before its capture)."""
+    with _SIDES_MADE:
+        sides = _SIDES.get(dev)
+        if sides is None:
+            sides = _SIDES[dev] = (threading.RLock(),
+                                   torch.cuda.Stream(dev, priority=SIDE_PRIORITY),
+                                   torch.cuda.Stream(dev, priority=SIDE_PRIORITY))
+    return sides
 
 
 def _shape(F: BForm):
@@ -108,7 +152,8 @@ class _Captured:
 
     def __init__(self, owner, dev, body, what: str):
         cur = torch.cuda.current_stream(dev)
-        stream = torch.cuda.Stream(dev)
+        # compose2's critical path at CRITICAL_PRIORITY
+        stream = torch.cuda.Stream(dev, priority=CRITICAL_PRIORITY)
         stream.wait_stream(cur)
         t = time.perf_counter()
         with torch.cuda.stream(stream):
@@ -126,7 +171,8 @@ class _Captured:
         was_enabled = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.stream(stream), cuda_group.capturing_launches(keys):
+            with (torch.cuda.stream(stream), cuda_group.capturing_launches(keys),
+                  side_streams(dev)[0]):
                 self.graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     self.out = body()
@@ -165,9 +211,11 @@ class ComposeGraph:
                             f"compose2 at batch {B}")
         self.graph, self.out, self.keys, self.launches = (cap.graph, cap.out, cap.keys,
                                                           cap.launches)
+        # the captured compose2's fork sites (forms2._Dag)
+        self.branches = cg.branches
         self.warmup_s, self.capture_s = cap.warmup_s, cap.capture_s
         self.reserved_before, self.reserved_after = cap.reserved_before, cap.reserved_after
-        self._span_attrs = {"lanes": B}
+        self._span_attrs = {"lanes": B, "branches": self.branches}
 
     @property
     def replays(self) -> int:
@@ -277,7 +325,8 @@ class LadderSteps:
         """wnaf_segment(cg, bank, r, sched) on this state, as fresh tensors."""
         rows = wnaf_plan(sched, self.nslots)
         step_s, step_sc = self.step_s, self.step_sc
-        with trace.span("graphs.ladder", {"lanes": self.r.a.shape[0], "steps": len(sched)}):
+        with trace.span("graphs.ladder", {"lanes": self.r.a.shape[0], "steps": len(sched),
+                                          "branches": self.cg.branches}):
             self._load(bank, r)
             at = 0
             for d in sched:
