@@ -66,7 +66,7 @@
    replay's captured kernels, by (kernel, width, extra, batch). Each
    graph's warm-up and capture seconds and its memory pool are printed.
    The main path's 128 ciphertexts are then decrypted once more by graph
-   replays and once by an eager engine (graphs=False): the c1^sk forms and
+   replays and once by an eager engine (`eager_cg`): the c1^sk forms and
    the plaintexts must be bit-identical, and the launch counts of all
    thirteen kernels equal; both wall times are printed. Operands are recorded from
    the eager calls (a replay calls no wrapper): one decrypt compose2 (128
@@ -274,7 +274,6 @@ K6A_W = (8, 72, 144, 264)
 # limb; K6e an output limb: its two staged limbs, the two shifts, the mask
 # and the or (and one a staged limb)
 OPS_K6_SEL, OPS_K6E = 2, 6
-K6_KERNELS = ("canon_sm", "compose_prologue", "gcd_bridge", "gcd2_merge", "c3_operands")
 # compose2's sections, by the comment that opens each in
 # forms2.CG.compose2_unreduced (the prologue runs from its start)
 SECTION_MARKS = (("first-gcd selects", "# first gcd"),
@@ -1184,9 +1183,10 @@ def k6b_wide_forms(torch, lb, own, cg, B):
 
 def check_k6b(torch, cgp, lb, cg, gmp, hsm, port, own, B):
     """K6b on k6b_operands at B lanes, with the first gcd's operands (Lxn <
-    L): bit-exact against its plain version (forms2.compose2_prologue_plain),
-    with identity, swapped and rotated lanes live; and on k6b_wide_forms,
-    where the first gcd's select takes both sides. Returns its numbers."""
+    L): bit-exact against its plain version
+    (compose2_plain.compose2_prologue_plain), with identity, swapped and
+    rotated lanes live; and on k6b_wide_forms, where the first gcd's select
+    takes both sides. Returns its numbers."""
     f1, f2 = k6b_operands(cg, gmp, hsm, port, own, B)
     b1, b2 = (port.bform_from_forms(f, cg.L, "cuda") for f in (f1, f2))
     args = (b1, b2, cg.h, cg.h2, cg.Lh, cg.Lxn)
@@ -1249,9 +1249,9 @@ def k6c_operands(torch, lb, own, cg, B):
 
 def check_k6c(torch, cgp, lb, own, cg, B):
     """K6c on k6c_operands at B lanes, with and without the narrow pass:
-    bit-exact against its plain version (forms2.gcd_bridge_plain), and d1,
-    fits8 and rare against Python integers on the first 256 lanes, both
-    sides of 2^120 and rare lanes live. Returns its numbers."""
+    bit-exact against its plain version (compose2_plain.gcd_bridge_plain),
+    and d1, fits8 and rare against Python integers on the first 256 lanes,
+    both sides of 2^120 and rare lanes live. Returns its numbers."""
     args = k6c_operands(torch, lb, own, cg, B)
     wide = args[:5] + (None,)
     got = cgp.gcd_bridge_cuda(*args)
@@ -1283,8 +1283,8 @@ def check_k6c(torch, cgp, lb, own, cg, B):
 def check_k6d(torch, cgp, lb, own, cg, B):
     """K6d at compose2's widths on B lanes: g8, eta0_8 below 2^128, gF,
     eta0F below 2^(16 Lh), fits8 random; bit-exact against its plain
-    version (forms2.gcd2_merge_plain) and against Python integers on the
-    first 256 lanes. Returns its numbers."""
+    version (compose2_plain.gcd2_merge_plain) and against Python integers
+    on the first 256 lanes. Returns its numbers."""
     Lh = cg.Lh
 
     def rand(W):
@@ -1317,8 +1317,8 @@ def check_k6e(torch, cgp, lb, own, cg, B):
     """K6e at compose2's widths (a3 at L, csum at Lm) on B lanes: a3 with
     e = 0, 15, 16, 32, 16 L - 1 and a zero a3 first, then random a3 with
     random trailing zeros; csum random, one lane all 0xFFFF. Bit-exact
-    against its plain version (forms2.c3_operands_plain) and against Python
-    integers on the first 256 lanes. Returns its numbers."""
+    against its plain version (compose2_plain.c3_operands_plain) and
+    against Python integers on the first 256 lanes. Returns its numbers."""
     L, Lm = cg.L, cg.Lm
     a3 = [1 << e for e in (0, 15, 16, 32, 16 * L - 1)] + [0]
     a3 += [((own.getrandbits(16 * L) | 1) << own.randrange(16 * L)) % (1 << (16 * L))
@@ -1359,18 +1359,18 @@ class Recorder:
     run."""
 
     WANT = {("decrypt", 128), ("matmul", 256), ("matmul", 16384)}
-    WRAPPERS = ("xgcd_coeff_g_cuda", "mod_topdown_cuda", "reduce2_grouped_loop_cuda",
-                "reduce_exact_cuda", "mag_mul_cuda", "mag_divexact_odd_cuda",
-                "redc_mod_cuda", "lehmer_euclid_cuda", "canon_sm_cuda",
-                "compose_prologue_cuda", "gcd_bridge_cuda", "gcd2_merge_cuda",
-                "c3_operands_cuda")
+
+    @staticmethod
+    def wrappers(cgp) -> list:
+        """The thirteen kernel wrappers, in cuda_group.KERNELS' order."""
+        return [cgp.DISPATCH[k].name + "_cuda" for k in cgp.KERNELS]
 
     def __init__(self, torch, cgp, want=None, wrappers=None):
         self.torch, self.cgp = torch, cgp
         self.want = self.WANT if want is None else want
         self.phase = None
         self.ops: dict = {}
-        self.orig = {n: getattr(cgp, n) for n in (wrappers or self.WRAPPERS)}
+        self.orig = {n: getattr(cgp, n) for n in (wrappers or self.wrappers(cgp))}
 
     def _clone(self, a):
         """a copy of an argument: tensors cloned, also inside tuples (a
@@ -1417,12 +1417,12 @@ class Recorder:
                        math.prod(ma.shape[:-1])), (ma, mb, Lo))
             return orig["mag_mul_cuda"](ma, mb, L_out)
 
-        def quo(x, y, L_out):
+        def quo(x, y, L_out, inv=None):
             rec._note(("divexact_odd", L_out, f"{x.shape[-1]}x{y.shape[-1]}",
                        math.prod(x.shape[:-1])), (x, y, L_out))
             return orig["mag_divexact_odd_cuda"](x, y, L_out)
 
-        def redc(x, d, steps, active=None):
+        def redc(x, d, steps, active=None, inv=None):
             rec._note(("redc_mod", x.shape[1], d.shape[1], x.shape[0]),
                       (x, d, steps, active))
             return orig["redc_mod_cuda"](x, d, steps, active)
@@ -1489,6 +1489,24 @@ def reset_counts(cgp) -> None:
     """Set the launch counts, and the count kept apart from them, to 0."""
     cgp.reset_launches()
     CALLS.clear()
+
+
+def k6_kernels(cgp) -> tuple:
+    """K6a-K6e, compose2's fused kernels, by the labels of cuda_group's
+    dispatch table."""
+    return tuple(k for k, d in cgp.DISPATCH.items() if d.label.startswith("K6"))
+
+
+def eager_cg(cg):
+    """`cg` with compose2 and the wNAF ladder run eagerly on the card: the
+    bodies every capture runs (CG.compose2_eager, graphs.LadderSteps), set
+    on this instance alone. Returns it."""
+    from cofhe_tpu_torch.ops.graphs import LadderSteps
+
+    cg.compose2 = cg.compose2_eager
+    cg.compose_graphs.run_ladder = \
+        lambda bank, r, sched: LadderSteps(cg, bank, r).run(bank, r, sched)
+    return cg
 
 
 def path_kernels(cgp, nucomp: bool = False) -> list:
@@ -1610,8 +1628,9 @@ def compare_decrypt(torch, cgp, port, rec, main):
     cs, sk, res = main["cs"], main["sk"], main["res"]
     cts = list(res.data)
     runs = {}
-    for label, eng in (("graph", cs._engine),
-                       ("eager", port.TorchEngine(cs.hsm2k, "cuda", graphs=False))):
+    eager = port.TorchEngine(cs.hsm2k, "cuda")
+    eager_cg(eager.cg)
+    for label, eng in (("graph", cs._engine), ("eager", eager)):
         reset_counts(cgp)
         rec.phase = "decrypt"
         with rec if label == "eager" else contextlib.nullcontext():
@@ -1881,8 +1900,7 @@ def run_legacy(torch, cgp, port, main, rng):
     b1 = port.bform_from_forms(f1, cg.L, "cuda")
     b2 = port.bform_from_forms(f2, cg.L, "cuda")
     ncg = port.f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True)
-    necg = port.f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True,
-                       graphs=False)
+    necg = eager_cg(port.f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True))
     spec = forms.FormSpec.for_disc_bits(cg.disc_bits)
     if spec.L != cg.L or ncg.Ln <= cg.L:
         fail(f"legacy widths: v1 L={spec.L}, compose2 L={cg.L}, Ln={ncg.Ln}")
@@ -1898,7 +1916,7 @@ def run_legacy(torch, cgp, port, main, rng):
     timer = PhaseTimer("cuda")
     phases = timer.phases
     rec = Recorder(torch, cgp, want={("legacy", LEGACY_B)},
-                   wrappers=Recorder.WRAPPERS[:4] + ("lehmer_euclid_cuda", "canon_sm_cuda"))
+                   wrappers=Recorder.wrappers(cgp)[:4] + ["lehmer_euclid_cuda", "canon_sm_cuda"])
     rec.phase = "legacy"
     reset_counts(cgp)
     with rec, torch.inference_mode():
@@ -1972,7 +1990,7 @@ def run_legacy(torch, cgp, port, main, rng):
                       for k, x in phases.items()}))
     report_graphs(ncg, "NUCOMP")
     seed = rng.getrandbits(64)  # every profile composes the same forms
-    ecg = port.f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, graphs=False)
+    ecg = eager_cg(port.f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2))
     groups = None
     for c, label in ((ecg, "default tail, eager"), (cg, "default tail, graph replay"),
                      (necg, "NUCOMP tail, eager"), (ncg, "NUCOMP tail, graph replay")):
@@ -2056,7 +2074,7 @@ def table_row(torch, cgp, f2m, cg, lb, key, args, n_launch):
     if name in ("mag_mul", "divexact_odd", "redc_mod"):
         ms, plain_ms, (bms, by, row["bound_cuda_cores_ms"]), trips = limb_row(
             torch, cgp, lb, row, key, args)
-    elif name in K6_KERNELS:
+    elif name in k6_kernels(cgp):
         ms, plain_ms, (bms, by), trips = k6_row(torch, cgp, lb, row, key, args)
     elif name == "xgcd_coeff_g":
         f, g, m, nbits = args
@@ -2436,6 +2454,8 @@ def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from cofhe_tpu_torch.ops.cuda_group import KERNELS
+
     base = gmp.nupow_batch([hsm.h] * 16, [rng.getrandbits(1100) for _ in range(16)])
     b1 = bform_from_forms([base[rng.randrange(16)] for _ in range(B)], cg.L, "cuda")
     b2 = bform_from_forms([base[rng.randrange(16)] for _ in range(B)], cg.L, "cuda")
@@ -2457,10 +2477,7 @@ def profile_compose(torch, cg, gmp, hsm, bform_from_forms, rng, label, B=128,
             cg.compose2(b1, b2)
     # device-side events only: a CPU op's device time repeats its kernels'
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    split = dict.fromkeys(("xgcd_coeff_g", "mod_topdown", "reduce2_grouped",
-                           "reduce_exact", "mag_mul", "divexact_odd", "redc_mod",
-                           "lehmer_euclid", "canon_sm", "compose_prologue",
-                           "gcd_bridge", "gcd2_merge", "c3_operands", "other"), 0.0)
+    split = dict.fromkeys(KERNELS + ("other",), 0.0)
     for e in device:
         k = "lehmer_euclid" if any(n in e.name for n in K7_DEVICE) else next(
             (n for n in split if n + "_kernel" in e.name), "other")
@@ -2632,12 +2649,13 @@ def sass_counts(body: str) -> dict:
 def check_spills(cgp) -> None:
     """Every K7 and K6a-K6e instance in the build's ptxas report must spill
     nothing."""
+    k6 = k6_kernels(cgp)
     inst = {k: p for k, p in ptxas_instances(cgp.BUILD_INFO["log"]).items()
-            if k[0].startswith("lehmer_euclid") or k[0] in K6_KERNELS}
+            if k[0].startswith("lehmer_euclid") or k[0] in k6}
     if not inst:
         log("ptxas: no K7 or K6a-K6e instance in the report (libraries already built)")
         return
-    missing = [n for n in K6_KERNELS if not any(k[0] == n for k in inst)]
+    missing = [n for n in k6 if not any(k[0] == n for k in inst)]
     if missing:
         fail(f"ptxas: no instance of {missing} in the build's report")
     bad = [f"{k[0]}<{', '.join(map(str, k[1]))}>" for k, p in sorted(inst.items())
@@ -2645,7 +2663,7 @@ def check_spills(cgp) -> None:
     if bad:
         fail(f"K7 / K6a-K6e instances spill: {bad}")
     for (kname, args), p in sorted(inst.items()):
-        if kname in K6_KERNELS:
+        if kname in k6:
             log(f"ptxas {kname}_kernel<{', '.join(map(str, args))}>: {p.get('regs')} "
                 f"registers, no spill")
     log(f"ptxas: none of the {len(inst)} K7 and K6a-K6e instances spills")

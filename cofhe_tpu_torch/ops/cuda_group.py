@@ -22,9 +22,10 @@ source notes say more.
 * K3 `reduce2_grouped` (csrc/reduce2_grouped.cu) replaces the XLA loop of
   forms2.py::CG.reduce2_grouped: rho-descent groups with a 2^22 matrix
   budget steered by float64 estimates, applied with 64-bit products; its
-  plain version is ops/forms2.py::grouped_rho_loop_wide, whose limbs it
-  matches. Held back by the scalar simulation between groups, which the
-  design keeps to products, comparisons and one or two divisions a step.
+  plain version is ops/compose2_plain.py::grouped_rho_loop_wide, whose
+  limbs it matches. Held back by the scalar simulation between groups,
+  which the design keeps to products, comparisons and one or two
+  divisions a step.
 * KT `reduce_exact` (csrc/reduce_exact.cu) replaces the XLA while loop of
   forms.py::reduce_batch, the exact tail after K3: canonicalizes K3's
   redundant rows and takes each lane to its unique reduced form by rho
@@ -67,17 +68,17 @@ source notes say more.
   prologue up to s and dd (the identity masks and substitution, the
   swap, rotate_to_odd, s and dd) and, where the narrow width Lxn is below
   L, the first gcd's operands, in one launch; its plain version is
-  forms2.compose2_prologue_plain.
+  compose2_plain.compose2_prologue_plain.
 * K6c `gcd_bridge` (csrc/gcd_bridge.cu) replaces the selects between
   compose2's two gcds: d1 and beta merged from the first gcd's two
   passes, fits8, rare and the second gcd's divisors; its plain version is
-  forms2.gcd_bridge_plain.
+  compose2_plain.gcd_bridge_plain.
 * K6d `gcd2_merge` (csrc/gcd2_merge.cu) replaces the merge of the second
   gcd's two pipelines into g and eta0; its plain version is
-  forms2.gcd2_merge_plain.
+  compose2_plain.gcd2_merge_plain.
 * K6e `c3_operands` (csrc/c3_operands.cu) replaces mag_v2 and the two
   dynamic shifts before c3's exact quotient; its plain version is
-  forms2.c3_operands_plain.
+  compose2_plain.c3_operands_plain.
 
 The main path runs 97% of K2's and K3's launches at 128-256 lanes, where a
 kernel's time is the latency of one warp's loop rather than the card's
@@ -85,14 +86,15 @@ rate; the kernels the main path runs have four warps a block (K7, off
 the main path, one). The earlier plain versions,
 rl.mod_topdown and forms2.grouped_rho_loop, stay as references.
 
-The dispatchers `xgcd_coeff_g`, `mod_topdown`, `reduce2_grouped_loop`,
-`reduce_exact`, `mag_mul`, `mag_divexact_odd`, `redc_mod`,
-`lehmer_euclid`, `canon_sm`, `compose_prologue`, `gcd_bridge`,
-`gcd2_merge` and `c3_operands` are what
-ops/forms2.py (and limb.mag_mul / mag_divexact_odd) call: a CPU tensor
-goes to the plain version (`plain_route`), a CUDA tensor to the kernel,
-and anything else raises;
-there is no fallback from the kernel to the plain version. Each `*_cuda`
+Each kernel has a dispatcher, a module-level function that ops/forms2.py
+(and limb.mag_mul / mag_divexact_odd) call, built from one table,
+`DISPATCH`: by kernel name, the dispatcher's name, the kernel's label and
+the argument whose tensor picks the route. A CPU tensor goes to the plain
+version, `<dispatcher>_plain` (`plain_route`), any other to the CUDA
+wrapper, `<dispatcher>_cuda`, which launches the kernel on a CUDA tensor
+and raises on anything else; there is no fallback from the kernel to the
+plain version. Both are read from the module at each call, so a test or
+a tool may replace either. Each `*_cuda`
 wrapper adds one to `LAUNCHES[name]` and to `LAUNCHES_BY_KEY[(name,
 width, extra, batch)]` (extra: nbits or Lm, the operand widths "LaxLb" of
 a product or "LxxLy" of a quotient, d's width for a REDC, the group cap
@@ -129,12 +131,13 @@ import subprocess
 import threading
 import time
 import weakref
-from collections.abc import Mapping
+from collections.abc import Callable, Mapping
+from typing import NamedTuple
 
 import torch
 
 from . import limb as lb
-from . import rl, xgcd2
+from . import compose2_plain, rl, xgcd2
 from .forms import BForm, reduce_batch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -165,6 +168,41 @@ _ARGTYPES = {
     "c3_operands": [_P] * 4 + [_I] * 3 + [_P],
 }
 KERNELS = tuple(_ARGTYPES)
+
+
+class Dispatch(NamedTuple):
+    """A kernel's dispatcher: its module-level `name`, beside which
+    `<name>_plain` and `<name>_cuda` stand; the kernel's `label`; and
+    `route(args)`, the tensor among the call's positional arguments whose
+    device picks the route."""
+
+    name: str
+    label: str
+    route: Callable
+
+
+def _arg0(args):
+    return args[0]
+
+
+# every kernel's dispatcher, by kernel name (the keys of _ARGTYPES)
+DISPATCH = {
+    "xgcd_coeff_g": Dispatch("xgcd_coeff_g", "K1", _arg0),
+    "mod_topdown": Dispatch("mod_topdown", "K2", _arg0),
+    "reduce2_grouped": Dispatch("reduce2_grouped_loop", "K3", _arg0),
+    "reduce_exact": Dispatch("reduce_exact", "KT", _arg0),
+    "mag_mul": Dispatch("mag_mul", "K5m", _arg0),
+    "divexact_odd": Dispatch("mag_divexact_odd", "K5d", _arg0),
+    "redc_mod": Dispatch("redc_mod", "K4", _arg0),
+    "lehmer_euclid": Dispatch("lehmer_euclid", "K7", _arg0),
+    # the first term's magnitude
+    "canon_sm": Dispatch("canon_sm", "K6a", lambda args: args[0][0][0]),
+    # F1.a
+    "compose_prologue": Dispatch("compose_prologue", "K6b", lambda args: args[0].a),
+    "gcd_bridge": Dispatch("gcd_bridge", "K6c", _arg0),
+    "gcd2_merge": Dispatch("gcd2_merge", "K6d", _arg0),
+    "c3_operands": Dispatch("c3_operands", "K6e", _arg0),
+}
 
 # launches outside graphs (and of freed graphs), by (kernel, width, extra,
 # batch)
@@ -452,13 +490,6 @@ def xgcd_coeff_g_cuda(f_mag, g_mag, m_mag, nbits: int, need_u: bool = False,
     return (d, cg, cu) if need_u else (d, cg)
 
 
-def xgcd_coeff_g(f_mag, g_mag, m_mag, nbits: int, need_u: bool = False):
-    """Dispatcher: plain version for CPU tensors, K1 for CUDA tensors."""
-    if plain_route(f_mag):
-        return xgcd_coeff_g_plain(f_mag, g_mag, m_mag, nbits, need_u=need_u)
-    return xgcd_coeff_g_cuda(f_mag, g_mag, m_mag, nbits, need_u=need_u)
-
-
 # ----------------------------------------------------------- K2: mod_topdown
 
 
@@ -485,28 +516,17 @@ def mod_topdown_cuda(x, m_mag, max_iters: int, iters=None):
     return out
 
 
-def mod_topdown(x, m_mag, max_iters: int):
-    """Dispatcher: plain version for CPU tensors, K2 for CUDA tensors."""
-    if plain_route(x):
-        return mod_topdown_plain(x, m_mag, max_iters)
-    return mod_topdown_cuda(x, m_mag, max_iters)
-
-
 # ------------------------------------------------- K3: grouped rho-descent
 
 
-def reduce2_grouped_loop_plain(a, b, c, dD_mant: float, dD_top: int,
-                               red_iters: int, iters=None):
-    from .forms2 import grouped_rho_loop_wide  # forms2 imports this module
-
-    return grouped_rho_loop_wide(a, b, c, dD_mant, dD_top, red_iters, iters)
+reduce2_grouped_loop_plain = compose2_plain.grouped_rho_loop_wide
 
 
 def reduce2_grouped_loop_cuda(a, b, c, dD_mant: float, dD_top: int,
                               red_iters: int, iters=None):
-    """K3 on the card: forms2.grouped_rho_loop_wide on redundant (a, b, c);
-    returns the same redundant limbs, whose exact tail is the unique
-    reduced form. `iters`, if given, receives each row's number of
+    """K3 on the card: compose2_plain.grouped_rho_loop_wide on redundant
+    (a, b, c); returns the same redundant limbs, whose exact tail is the
+    unique reduced form. `iters`, if given, receives each row's number of
     groups."""
     _check("reduce2_grouped", a, b, c)
     B, L = a.shape
@@ -520,14 +540,6 @@ def reduce2_grouped_loop_cuda(a, b, c, dD_mant: float, dD_top: int,
             _iters_ptr(iters, B, a), B, L, int(dD_top), int(red_iters),
             float(dD_mant))
     return ao, bo, co
-
-
-def reduce2_grouped_loop(a, b, c, dD_mant: float, dD_top: int,
-                         red_iters: int):
-    """Dispatcher: plain version for CPU tensors, K3 for CUDA tensors."""
-    if plain_route(a):
-        return reduce2_grouped_loop_plain(a, b, c, dD_mant, dD_top, red_iters)
-    return reduce2_grouped_loop_cuda(a, b, c, dD_mant, dD_top, red_iters)
 
 
 # ------------------------------------------------------ KT: the exact tail
@@ -563,13 +575,6 @@ def reduce_exact_cuda(a, b, c, max_iters: int, iters=None) -> BForm:
     return BForm(ao, bs, bo, co)
 
 
-def reduce_exact(a, b, c, max_iters: int) -> BForm:
-    """Dispatcher: plain version for CPU tensors, KT for CUDA tensors."""
-    if plain_route(a):
-        return reduce_exact_plain(a, b, c, max_iters)
-    return reduce_exact_cuda(a, b, c, max_iters)
-
-
 # ------------------------------------------------------------ K5m: products
 
 mag_mul_plain = lb.mag_mul_plain
@@ -596,23 +601,17 @@ def mag_mul_cuda(ma, mb, L_out: int | None = None):
     return out.reshape(*lead, L_out)
 
 
-def mag_mul(ma, mb, L_out: int | None = None):
-    """Dispatcher: plain version for CPU tensors, K5m for CUDA tensors."""
-    if plain_route(ma):
-        return mag_mul_plain(ma, mb, L_out)
-    return mag_mul_cuda(ma, mb, L_out)
-
-
 # ------------------------------------------------ K5d: exact quotients
 
 
 mag_divexact_odd_plain = lb.mag_divexact_odd_plain
 
 
-def mag_divexact_odd_cuda(x, y, L_out: int):
+def mag_divexact_odd_cuda(x, y, L_out: int, inv=None):
     """K5d on the card: x * y^-1 mod 2^(16 L_out) for odd y (L_out <= x's
     width; leading shapes broadcast), as limb.mag_divexact_odd_plain gives
-    it; the kernel takes its own 16-bit inverse of y."""
+    it; the kernel takes its own 16-bit inverse of y, so `inv`, the plain
+    version's, is ignored."""
     Lx, Ly = x.shape[-1], y.shape[-1]
     x, y, lead = _broadcast("mag_divexact_odd", x, y)
     if L_out > Lx:
@@ -630,25 +629,18 @@ def mag_divexact_odd_cuda(x, y, L_out: int):
     return q.reshape(*lead, L_out)
 
 
-def mag_divexact_odd(x, y, L_out: int, inv=None):
-    """Dispatcher: plain version (with `inv`, if given) for CPU tensors,
-    K5d for CUDA tensors."""
-    if plain_route(x):
-        return mag_divexact_odd_plain(x, y, L_out, inv=inv)
-    return mag_divexact_odd_cuda(x, y, L_out)
-
-
 # ------------------------------------------------------- K4: Montgomery REDC
 
 
 redc_mod_plain = rl.redc_mod
 
 
-def redc_mod_cuda(x, d_mag, steps: int, active=None):
+def redc_mod_cuda(x, d_mag, steps: int, active=None, inv=None):
     """K4 on the card: rl.redc_mod's x * 2^(-16 steps) mod d in [0, d) at
     x's width, for canonical (B, Lx) x and odd (B, Ld) d, Ld <= Lx; rows
     outside the (B,) bool `active` get floor(x / 2^(16 steps)) reduced
-    once by d. The kernel takes its own 16-bit inverse of d."""
+    once by d. The kernel takes its own 16-bit inverse of d, so `inv`,
+    the plain version's, is ignored."""
     if x.dim() != 2 or d_mag.dim() != 2 or d_mag.shape[0] != x.shape[0]:
         raise ValueError(f"redc_mod: (B, Lx) x and (B, Ld) d required, got "
                          f"{tuple(x.shape)} and {tuple(d_mag.shape)}")
@@ -671,14 +663,6 @@ def redc_mod_cuda(x, d_mag, steps: int, active=None):
             None if act is None else act.data_ptr(), out.data_ptr(), B, Lx, Ld,
             sx, sd, int(steps))
     return out
-
-
-def redc_mod(x, d_mag, steps: int, active=None, inv=None):
-    """Dispatcher: plain version (with `inv`, if given) for CPU tensors, K4
-    for CUDA tensors."""
-    if plain_route(x):
-        return redc_mod_plain(x, d_mag, steps, active=active, inv=inv)
-    return redc_mod_cuda(x, d_mag, steps, active=active)
 
 
 # ------------------------------------------------------- K7: the Lehmer walk
@@ -722,16 +706,6 @@ def lehmer_euclid_cuda(r0_mag, r1_mag, bits_stop, max_groups: int,
             _iters_ptr(iters, B, r0_mag), work.data_ptr(), B, L,
             int(max_groups), int(sim_steps))
     return (*rows, par)
-
-
-def lehmer_euclid(r0_mag, r1_mag, bits_stop, max_groups: int,
-                  sim_steps: int = 8, active=None, iters=None):
-    """Dispatcher: plain version for CPU tensors, K7 for CUDA tensors."""
-    if plain_route(r0_mag):
-        return lehmer_euclid_plain(r0_mag, r1_mag, bits_stop, max_groups,
-                                   sim_steps=sim_steps, active=active, iters=iters)
-    return lehmer_euclid_cuda(r0_mag, r1_mag, bits_stop, max_groups,
-                              sim_steps=sim_steps, active=active, iters=iters)
 
 
 # ------------------------------------------------ K6a: signed sums, canonical
@@ -831,21 +805,10 @@ def canon_sm_cuda(terms, W: int, shr: int = 0, W_shr: int | None = None,
     return outs[0] if terms2 is None else tuple(outs)
 
 
-def canon_sm(terms, W: int, shr: int = 0, W_shr: int | None = None, terms2=None):
-    """Dispatcher: plain version for CPU tensors, K6a for CUDA tensors."""
-    if plain_route(terms[0][0]):
-        return canon_sm_plain(terms, W, shr=shr, W_shr=W_shr, terms2=terms2)
-    return canon_sm_cuda(terms, W, shr=shr, W_shr=W_shr, terms2=terms2)
-
-
 # -------------------------------------------------- K6b: compose2's prologue
 
 
-def compose_prologue_plain(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int,
-                           Lxn: int | None = None):
-    from .forms2 import compose2_prologue_plain  # forms2 imports this module
-
-    return compose2_prologue_plain(F1, F2, h, h2, Lh, Lxn)
+compose_prologue_plain = compose2_plain.compose2_prologue_plain
 
 
 def _bool_rows(name: str, B: int, dev, *masks) -> None:
@@ -906,21 +869,10 @@ def compose_prologue_cuda(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int,
     return outs
 
 
-def compose_prologue(F1: BForm, F2: BForm, h: BForm, h2: BForm, Lh: int,
-                     Lxn: int | None = None):
-    """Dispatcher: plain version for CPU tensors, K6b for CUDA tensors."""
-    if plain_route(F1.a):
-        return compose_prologue_plain(F1, F2, h, h2, Lh, Lxn)
-    return compose_prologue_cuda(F1, F2, h, h2, Lh, Lxn)
-
-
 # ------------------------------------- K6c: from the first gcd to the second
 
 
-def gcd_bridge_plain(d1_w, beta_w, id1, id2, Lh: int, narrow=None):
-    from .forms2 import gcd_bridge_plain  # forms2 imports this module
-
-    return gcd_bridge_plain(d1_w, beta_w, id1, id2, Lh, narrow)
+gcd_bridge_plain = compose2_plain.gcd_bridge_plain
 
 
 def gcd_bridge_cuda(d1_w, beta_w, id1, id2, Lh: int, narrow=None):
@@ -964,20 +916,10 @@ def gcd_bridge_cuda(d1_w, beta_w, id1, id2, Lh: int, narrow=None):
     return tuple(outs)
 
 
-def gcd_bridge(d1_w, beta_w, id1, id2, Lh: int, narrow=None):
-    """Dispatcher: plain version for CPU tensors, K6c for CUDA tensors."""
-    if plain_route(d1_w):
-        return gcd_bridge_plain(d1_w, beta_w, id1, id2, Lh, narrow)
-    return gcd_bridge_cuda(d1_w, beta_w, id1, id2, Lh, narrow)
-
-
 # ----------------------------------- K6d: the second gcd's pipelines merged
 
 
-def gcd2_merge_plain(g8, eta0_8, gF, eta0F, fits8):
-    from .forms2 import gcd2_merge_plain  # forms2 imports this module
-
-    return gcd2_merge_plain(g8, eta0_8, gF, eta0F, fits8)
+gcd2_merge_plain = compose2_plain.gcd2_merge_plain
 
 
 def gcd2_merge_cuda(g8, eta0_8, gF, eta0F, fits8):
@@ -999,20 +941,10 @@ def gcd2_merge_cuda(g8, eta0_8, gF, eta0F, fits8):
     return g, eta0
 
 
-def gcd2_merge(g8, eta0_8, gF, eta0F, fits8):
-    """Dispatcher: plain version for CPU tensors, K6d for CUDA tensors."""
-    if plain_route(g8):
-        return gcd2_merge_plain(g8, eta0_8, gF, eta0F, fits8)
-    return gcd2_merge_cuda(g8, eta0_8, gF, eta0F, fits8)
-
-
 # --------------------------------------------------- K6e: c3's operands
 
 
-def c3_operands_plain(a3, csum):
-    from .forms2 import c3_operands_plain  # forms2 imports this module
-
-    return c3_operands_plain(a3, csum)
+c3_operands_plain = compose2_plain.c3_operands_plain
 
 
 def c3_operands_cuda(a3, csum):
@@ -1031,8 +963,20 @@ def c3_operands_cuda(a3, csum):
     return csum_sh, a3_odd
 
 
-def c3_operands(a3, csum):
-    """Dispatcher: plain version for CPU tensors, K6e for CUDA tensors."""
-    if plain_route(a3):
-        return c3_operands_plain(a3, csum)
-    return c3_operands_cuda(a3, csum)
+# ---------------------------------------------------------- the dispatchers
+
+
+def _dispatcher(kernel: str, d: Dispatch):
+    mod = globals()
+
+    def dispatch(*args, **kwargs):
+        side = "_plain" if plain_route(d.route(args)) else "_cuda"
+        return mod[d.name + side](*args, **kwargs)
+
+    dispatch.__name__ = dispatch.__qualname__ = d.name
+    dispatch.__doc__ = (f"Dispatcher of {d.label} `{kernel}`: {d.name}_plain for CPU "
+                        f"tensors, {d.name}_cuda (the kernel) for CUDA tensors.")
+    return dispatch
+
+
+globals().update({d.name: _dispatcher(k, d) for k, d in DISPATCH.items()})

@@ -21,9 +21,11 @@ Every batched op comes down to `CG.compose2` on int32 limb tensors:
                           (parallel/sharded.py), c2 * d^-1, the host dlog.
 
 Tensors live on the engine's device: "cuda" (the default of the facade)
-runs the Hopper kernels, "cpu" runs their plain torch versions. Results
-are bit-exact with the host oracle (unique reduced forms). Ciphertext
-batches stack 2n rows, so they run in chunks of MAX_BATCH / 2.
+runs the Hopper kernels, compose2 and the wNAF ladder as CUDA graph
+replays (ops/graphs.py); "cpu" runs their plain torch versions and the
+same ladder steps eagerly. Results are bit-exact with the host oracle
+(unique reduced forms). Ciphertext batches stack 2n rows, so they run in
+chunks of MAX_BATCH / 2.
 
 With a `mesh` (parallel/sharded.py) the engine runs SPMD, as the JAX
 engine does under a global mesh: every rank calls the same method with the
@@ -103,8 +105,7 @@ class TorchEngine:
     # one batched compose on the device
     min_batch_encrypt = 64
 
-    def __init__(self, hsm2k: CLHSM2k, device="cuda", mesh=None,
-                 graphs: bool = True):
+    def __init__(self, hsm2k: CLHSM2k, device="cuda", mesh=None):
         self.hsm = hsm2k
         self.device = resolve_device(device)
         self.mesh = mesh
@@ -121,8 +122,7 @@ class TorchEngine:
         def row(i):
             return tuple(x[i].numpy() for x in h)
 
-        self.cg = CG.from_arrays(disc_bits, delta4, row(0), row(1),
-                                 self.device, graphs=graphs)
+        self.cg = CG.from_arrays(disc_bits, delta4, row(0), row(1), self.device)
         self._identity_form = hsm2k.identity
 
     def _forms_to_bform(self, forms, batch: int, rows=None) -> BForm:

@@ -70,13 +70,13 @@ nudupl2(r), bank[plan[counter]])` with the counter advanced. Neither
 depends on the exponent. A call loads `r` and the bank, uploads the plan
 (again every `PLAN_ROWS` nonzero digits), launches S or SC for each
 digit, which the host knows, and returns a clone of `r`: one launch a
-digit, with no copies around it. The step bodies run eagerly on the CPU
-too (`LadderSteps`), which is how the tests drive them; `wnaf_segment`
-itself keeps its compose2 loop on the CPU and with `graphs=False`. A
-ladder call adds to its graphs' replays (`LadderGraphs.steps` is their
-sum; cuda_group.LAUNCHES counts their kernels) and, while tracing is on,
-is one `graphs.ladder` span with `lanes`, `steps` (its digits) and
-`branches` (the CG's compose2 fork sites, `CG.branches`).
+digit, with no copies around it. On the CPU `wnaf_segment` runs the same
+step bodies eagerly (`LadderSteps`), on a state made afresh each call, so
+the CPU tests drive the card's ladder code. A ladder call adds to its
+graphs' replays (`LadderGraphs.steps` is their sum; cuda_group.LAUNCHES
+counts their kernels) and, while tracing is on, is one `graphs.ladder`
+span with `lanes`, `steps` (its digits) and `branches` (the CG's compose2
+fork sites, `CG.branches`).
 
 Captures use thread-local capture mode on a stream of their own, so a
 node runtime's other threads may keep using the card meanwhile; one lock
@@ -266,7 +266,8 @@ class LadderSteps:
     form; `bank`, the S slots, with the inverses' signs in rows S..2S-1 of
     `bank.b_sign`; `plan`, the counter then at most PLAN_ROWS bank rows.
     `step_s` and `step_sc` launch the steps: here they run eagerly (the
-    CPU's route in the tests); LadderGraphs replays their captures."""
+    CPU's route, and the bodies every capture runs); LadderGraphs replays
+    their captures."""
 
     def __init__(self, cg, bank: BForm, r: BForm):
         self.cg = cg
@@ -401,7 +402,12 @@ class ComposeGraphs:
             return g.run(F1, F2)
 
     def run_ladder(self, bank: BForm, r: BForm, sched) -> BForm:
-        """wnaf_segment(cg, bank, r, sched) by the ladder's step graphs."""
+        """wnaf_segment(cg, bank, r, sched): on a CUDA device by the
+        ladder's step graphs, held for later calls; elsewhere by its steps
+        run eagerly on a fresh state, which no other call shares (several
+        nodes of a CPU network run in one process)."""
+        if r.a.device.type != "cuda":
+            return LadderSteps(self.cg, bank, r).run(bank, r, sched)
         key = (r.a.device,) + tuple(bank.a.shape)
         with self._lock:
             lg = self.ladders.get(key)

@@ -135,18 +135,11 @@ def make_wnaf_bank(cg: CG, base: BForm, w: int = 5) -> BForm:
 
 def wnaf_segment(cg: CG, bank: BForm, r: BForm, sched) -> BForm:
     """r <- r^(2^len(sched)) * prod(bank digits): one nudupl per digit,
-    then a compose with bank[(|d|-1)/2] (inverted for d < 0) when d != 0.
-    On a CUDA device with the CG's graphs, one launch of a captured step a
-    digit with the state on the card (ops/graphs.py `LadderGraphs`)."""
-    if cg.graphs and r.a.is_cuda:
-        return cg.compose_graphs.run_ladder(bank, r, sched)
-    for d in sched:
-        r = cg.nudupl2(r)
-        if d != 0:
-            idx = (abs(d) - 1) // 2
-            t = BForm(bank.a[idx], bank.b_sign[idx], bank.b[idx], bank.c[idx])
-            r = cg.compose2(r, bform_neg(t) if d < 0 else t)
-    return r
+    then a compose with bank[(|d|-1)/2] (inverted for d < 0) when d != 0,
+    as the ladder's two steps on state of its own (ops/graphs.py
+    `LadderSteps`): on a CUDA device one launch of a captured step a digit
+    (`LadderGraphs`), on the CPU the steps run eagerly."""
+    return cg.compose_graphs.run_ladder(bank, r, sched)
 
 
 def nupow_shared_wnaf2(cg: CG, base: BForm, sched, w: int = 5) -> BForm:

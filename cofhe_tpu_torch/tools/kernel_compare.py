@@ -92,7 +92,7 @@ class Baseline:
     def __init__(self, csrc: str, cgp, fail):
         self.csrc, self.cgp, self.fail, self.fns, self.procs = csrc, cgp, fail, {}, {}
         self.out_dir = os.path.join(cgp.BUILD_DIR, "baseline")
-        self.kernels = [n for n in cgp.KERNELS if n in WRAPPER
+        self.kernels = [n for n in cgp.KERNELS if hasattr(self, n)
                         and os.path.exists(os.path.join(csrc, f"{n}.cu"))]
 
     def start(self) -> None:
@@ -166,7 +166,7 @@ class Baseline:
                    a.shape[0], La, Lb, sa, sb, L_out)
         return out.reshape(*lead, L_out)
 
-    def divexact_odd(self, torch, x, y, L_out):
+    def divexact_odd(self, torch, x, y, L_out, inv=None):
         Lx, Ly = x.shape[-1], y.shape[-1]
         x, y, lead = self.cgp._broadcast("mag_divexact_odd", x, y)
         xr, sx = self.cgp._rows("mag_divexact_odd", x)
@@ -176,7 +176,7 @@ class Baseline:
                    xr.shape[0], Lx, Ly, sx, sy, L_out)
         return q.reshape(*lead, L_out)
 
-    def redc_mod(self, torch, x, d, steps, active=None):
+    def redc_mod(self, torch, x, d, steps, active=None, inv=None):
         xr, sx = self.cgp._rows("redc_mod", x)
         dr, sd = self.cgp._rows("redc_mod", d, xr)
         out = torch.empty(xr.shape, dtype=torch.int32, device=xr.device)
@@ -198,26 +198,19 @@ class Baseline:
         return (*rows, par)
 
 
-# cuda_group's wrapper for each kernel
-WRAPPER = {"xgcd_coeff_g": "xgcd_coeff_g_cuda", "mod_topdown": "mod_topdown_cuda",
-           "reduce2_grouped": "reduce2_grouped_loop_cuda",
-           "reduce_exact": "reduce_exact_cuda", "mag_mul": "mag_mul_cuda",
-           "divexact_odd": "mag_divexact_odd_cuda",
-           "redc_mod": "redc_mod_cuda", "lehmer_euclid": "lehmer_euclid_cuda"}
-
-
 @contextlib.contextmanager
 def baseline_in_place(torch, cgp, base):
     """cuda_group's kernel wrappers replaced by the baseline's (those it
     has)."""
-    saved = {n: getattr(cgp, WRAPPER[n]) for n in base.kernels}
-    for n in base.kernels:
-        setattr(cgp, WRAPPER[n], lambda *a, _n=n, **k: getattr(base, _n)(torch, *a, **k))
+    wrapper = {n: cgp.DISPATCH[n].name + "_cuda" for n in base.kernels}
+    saved = {n: getattr(cgp, w) for n, w in wrapper.items()}
+    for n, w in wrapper.items():
+        setattr(cgp, w, lambda *a, _n=n, **k: getattr(base, _n)(torch, *a, **k))
     try:
         yield
     finally:
         for n, fn in saved.items():
-            setattr(cgp, WRAPPER[n], fn)
+            setattr(cgp, wrapper[n], fn)
 
 
 def matmul_again(torch, smoke, cgp, base, main) -> None:
@@ -227,8 +220,8 @@ def matmul_again(torch, smoke, cgp, base, main) -> None:
     from cofhe_tpu_torch.utils import trace
 
     cs, pk, pt, ct, res = (main[k] for k in ("cs", "pk", "pt", "ct", "res"))
-    cg, graphs = cs._engine.cg, cs._engine.cg.graphs
-    cg.graphs = False  # the reruns are eager (the baseline has no graphs)
+    cg = cs._engine.cg
+    cg.compose2 = cg.compose2_eager  # the reruns are eager (the baseline has no graphs)
     try:
         for label in ("this checkout's kernels", "the baseline kernels"):
             cs.rand_gen = copy.deepcopy(main["rand_at_matmul"])  # the same Enc(0)
@@ -255,7 +248,7 @@ def matmul_again(torch, smoke, cgp, base, main) -> None:
             if differ:
                 smoke.fail(f"the matmul again with {label} gave other ciphertexts")
     finally:
-        cg.graphs = graphs
+        del cg.compose2  # the class's compose2, by replays, again
 
 
 def in_turns(torch, smoke, new_fn, old_fn):
@@ -327,8 +320,7 @@ def nucomp_operands(torch, smoke, cgp, port, main) -> dict:
     """K7's operands of one eager NUCOMP compose2 on the c1 and c2 forms of
     128 of the main path's ciphertexts (chip_smoke's legacy path)."""
     cg = main["cs"]._engine.cg
-    ncg = port.f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True,
-                      graphs=False)
+    ncg = port.f2m.CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True)
     cts = main["ct"].data[:smoke.LEGACY_B]
     b1 = port.bform_from_forms([c.c1 for c in cts], cg.L, "cuda")
     b2 = port.bform_from_forms([c.c2 for c in cts], cg.L, "cuda")
@@ -336,7 +328,7 @@ def nucomp_operands(torch, smoke, cgp, port, main) -> dict:
                          wrappers=("lehmer_euclid_cuda",))
     rec.phase = "nucomp"
     with rec, torch.inference_mode():
-        ncg.compose2(b1, b2)
+        ncg.compose2_eager(b1, b2)
     return rec.ops
 
 
@@ -645,7 +637,7 @@ def compose_turn(root: str) -> int:
     cuda_group.build()
     hsm = CLHSM2k(smoke.SEC, smoke.K)
     cg = TorchEngine(hsm, "cuda").cg
-    ecg = TorchEngine(hsm, "cuda", graphs=False).cg
+    ecg = smoke.eager_cg(TorchEngine(hsm, "cuda").cg)
     gmp = hostgmp.GmpClassGroup(hsm.Delta)
     label = f"tree {root}"
     smoke.profile_compose(torch, cg, gmp, hsm, bform_from_forms, random.Random(smoke.SEED),
@@ -778,7 +770,7 @@ def main() -> int:
             compare_row(torch, smoke, cgp, cg, base, key, ops[key])
         compare_synthetic(torch, smoke, cgp, port, base, cg, gmp, hsm, rng)
     k7_walk(torch, smoke, cgp, port, base, hsm, cg, gmp, rng)
-    ecg = port.TorchEngine(hsm, "cuda", graphs=False).cg
+    ecg = smoke.eager_cg(port.TorchEngine(hsm, "cuda").cg)
     smoke.profile_compose(torch, ecg, gmp, hsm, port.bform_from_forms, rng,
                           "this checkout's kernels, eager")
     with baseline_in_place(torch, cgp, base):

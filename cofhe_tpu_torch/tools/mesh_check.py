@@ -48,26 +48,6 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 OPS = ("add", "matmul", "combine")
-# the kernel dispatchers of ops/cuda_group.py, by kernel name
-DISPATCHERS = {"xgcd_coeff_g": "xgcd_coeff_g", "mod_topdown": "mod_topdown",
-               "reduce2_grouped": "reduce2_grouped_loop",
-               "reduce_exact": "reduce_exact", "mag_mul": "mag_mul",
-               "divexact_odd": "mag_divexact_odd", "redc_mod": "redc_mod",
-               "lehmer_euclid": "lehmer_euclid", "canon_sm": "canon_sm",
-               "compose_prologue": "compose_prologue", "gcd_bridge": "gcd_bridge",
-               "gcd2_merge": "gcd2_merge", "c3_operands": "c3_operands"}
-
-
-def first_tensor(x):
-    """The first tensor in a dispatcher's argument (a tensor, or nested
-    tuples and lists of them: a K6a sum's terms, a K6b form), else None."""
-    if isinstance(x, (tuple, list)):
-        for y in x:
-            t = first_tensor(y)
-            if t is not None:
-                return t
-        return None
-    return x if hasattr(x, "is_cuda") else None
 
 
 class MeshCheckError(RuntimeError):
@@ -138,7 +118,8 @@ def make_inputs(path: str) -> None:
 
 def count_calls(cuda_group, graphs) -> dict:
     """Count the kernels run by 'kernel@batch' (batch: the rows of the
-    first tensor operand), apart from cuda_group's own counters: each call of a
+    tensor that picks the dispatcher's route, cuda_group.DISPATCH), apart
+    from cuda_group's own counters: each call of a
     dispatcher outside a graph capture (one launch on a card, the plain
     version on the CPU) and, for each replay of a
     compose2 graph or launch of a ladder step graph, each kernel it
@@ -153,14 +134,14 @@ def count_calls(cuda_group, graphs) -> dict:
         with lock:
             calls[key] = calls.get(key, 0) + n
 
-    for name, attr in DISPATCHERS.items():
-        def counted(*a, _orig=getattr(cuda_group, attr), _name=name, **kw):
-            t = first_tensor(a)
+    for name, d in cuda_group.DISPATCH.items():
+        def counted(*a, _orig=getattr(cuda_group, d.name), _name=name, _route=d.route, **kw):
+            t = _route(a)
             if not (t.is_cuda and torch.cuda.is_current_stream_capturing()):
                 add(f"{_name}@{math.prod(t.shape[:-1])}")
             return _orig(*a, **kw)
 
-        setattr(cuda_group, attr, counted)
+        setattr(cuda_group, d.name, counted)
     replay = graphs.ComposeGraph.run
 
     def replayed(g, F1, F2):

@@ -1,8 +1,8 @@
 """K6e (cofhe_tpu_torch/csrc/c3_operands.cu): c3's operands in compose2's
 epilogue, csum >> min(e, 16 Lm - 1) and a3 >> e at Lm limbs with e =
-v2(a3), through its plain version (forms2.c3_operands_plain, which
-cuda_group.c3_operands runs on CPU tensors) and a Python model of the
-kernel's own steps, since it runs only on a card.
+v2(a3), through its plain version (compose2_plain.c3_operands_plain,
+which cuda_group.c3_operands runs on CPU tensors) and a Python model of
+the kernel's own steps, since it runs only on a card.
 
 The plain version is held to the JAX package's code it replaces
 (cofhe_tpu/ops/forms2.py:638-641: limb.mag_v2, limb.mag_shr_bits_dyn and
@@ -28,7 +28,7 @@ import torch
 from cofhe_tpu.ops import limb as jlb
 from cofhe_tpu_torch.ops import cuda_group
 from cofhe_tpu_torch.ops import limb as lb
-from cofhe_tpu_torch.ops.forms2 import c3_operands_plain
+from cofhe_tpu_torch.ops.compose2_plain import c3_operands_plain
 
 torch.set_num_threads(1)
 

@@ -264,14 +264,14 @@ def test_eager_forked_compose2_under_allocator_churn_matches_on_card(cuda_device
     cpu_cg = TorchEngine(hsm, "cpu").cg
     cg = forms2.CG(cpu_cg.disc_bits, cpu_cg.delta4.to(cuda_device),
                    BForm(*(x.to(cuda_device) for x in cpu_cg.h)),
-                   BForm(*(x.to(cuda_device) for x in cpu_cg.h2)), graphs=False)
+                   BForm(*(x.to(cuda_device) for x in cpu_cg.h2)))
     p1, p2, want = _pool(hsm, cpu_cg, 512)
     d1, d2, dw = (BForm(*(x.to(cuda_device) for x in F)) for F in (p1, p2, want))
     gen = torch.Generator(device="cpu").manual_seed(5)
     bad = torch.zeros((), dtype=torch.int64, device=cuda_device)
     for i in range(40):
         idx = _lanes(512, i, cuda_device)
-        out = cg.compose2(_gather(d1, idx), _gather(d2, idx))
+        out = cg.compose2_eager(_gather(d1, idx), _gather(d2, idx))
         for _ in range(8):
             L = int(torch.randint(1, 4 * cg.Lm, (1,), generator=gen))
             junk = torch.empty((512, L), dtype=torch.int32, device=cuda_device)

@@ -1,5 +1,5 @@
 """K6b (cofhe_tpu_torch/csrc/compose_prologue.cu): compose2's prologue,
-through its plain version (forms2.compose2_prologue_plain, which
+through its plain version (compose2_plain.compose2_prologue_plain, which
 CG.compose2_prologue dispatches on CPU tensors) and, on the CPU, the
 whole compose2 around it.
 
@@ -28,7 +28,7 @@ from cofhe_tpu.ops.forms import bform_from_forms as jbform_from_forms
 from cofhe_tpu_torch.ops import cuda_group
 from cofhe_tpu_torch.ops import limb as lb
 from cofhe_tpu_torch.ops.forms import bform_from_forms, bform_to_forms
-from cofhe_tpu_torch.ops.forms2 import compose2_prologue_plain
+from cofhe_tpu_torch.ops.compose2_plain import compose2_prologue_plain
 from test_torch_forms2 import _cgs, _jax_out, _tuples
 
 torch.set_num_threads(1)

@@ -1,10 +1,10 @@
 """compose2's selects around its two gcds: K6b's first-gcd operands
 (cofhe_tpu_torch/csrc/compose_prologue.cu), K6c gcd_bridge
 (csrc/gcd_bridge.cu) and K6d gcd2_merge (csrc/gcd2_merge.cu), through
-their plain versions (forms2.first_gcd_operands, gcd_bridge_plain,
-gcd2_merge_plain, which the cuda_group dispatchers run on CPU tensors)
-and Python models of the kernels' own steps, since they run only on a
-card.
+their plain versions (compose2_plain.first_gcd_operands,
+gcd_bridge_plain, gcd2_merge_plain, which the cuda_group dispatchers run
+on CPU tensors) and Python models of the kernels' own steps, since they
+run only on a card.
 
 Each plain version is held to the JAX package's code it replaces
 (cofhe_tpu/ops/forms2.py:522-537, 544-549, 570-572 and 588-589: limb.mag_bitlen,
@@ -29,8 +29,8 @@ from cofhe_tpu.ops import limb as jlb
 from cofhe_tpu_torch.ops import cuda_group
 from cofhe_tpu_torch.ops import limb as lb
 from cofhe_tpu_torch.ops.forms import BForm
-from cofhe_tpu_torch.ops.forms2 import (compose2_prologue_plain, first_gcd_operands,
-                                        gcd2_merge_plain, gcd_bridge_plain)
+from cofhe_tpu_torch.ops.compose2_plain import (compose2_prologue_plain, first_gcd_operands,
+                                               gcd2_merge_plain, gcd_bridge_plain)
 
 torch.set_num_threads(1)
 

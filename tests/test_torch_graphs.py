@@ -143,20 +143,14 @@ def _guarded(x):
     return x.as_subclass(_NoSync) if isinstance(x, torch.Tensor) else x
 
 
-KERNEL_DISPATCHERS = ("xgcd_coeff_g", "mod_topdown", "reduce2_grouped_loop",
-                      "reduce_exact", "mag_mul", "mag_divexact_odd", "redc_mod",
-                      "lehmer_euclid", "canon_sm", "compose_prologue", "gcd_bridge",
-                      "gcd2_merge", "c3_operands")
-
-
 @contextlib.contextmanager
 def _opaque_kernels(monkeypatch, calls=None):
-    """The thirteen kernel dispatchers run their plain versions on plain
-    tensors (on the card they are single launches); `calls` counts the
-    dispatcher calls made outside another one (`calls["inside"]` > 0
+    """The kernel dispatchers (cuda_group.DISPATCH) run their plain versions
+    on plain tensors (on the card they are single launches); `calls` counts
+    the dispatcher calls made outside another one (`calls["inside"]` > 0
     while one runs)."""
     calls = collections.Counter() if calls is None else calls
-    for name in KERNEL_DISPATCHERS:
+    for name in (d.name for d in cuda_group.DISPATCH.values()):
         orig = getattr(cuda_group, name + "_plain")
 
         def call(*args, _orig=orig, _name=name, **kw):
@@ -293,8 +287,9 @@ def _card_cgs(device):
     from cofhe_tpu_torch.ops.engine import TorchEngine
 
     hsm = CLHSM2k(128, 32, p=toy_prime(100))
-    return (hsm, TorchEngine(hsm, device).cg,
-            TorchEngine(hsm, device, graphs=False).cg)
+    ecg = TorchEngine(hsm, device).cg
+    ecg.compose2 = ecg.compose2_eager  # the body every capture runs
+    return hsm, TorchEngine(hsm, device).cg, ecg
 
 
 @pytest.mark.cuda

@@ -55,7 +55,8 @@ def test_imports_without_jax_or_the_jax_package():
             "node.nodes", "node.server", "node.wire", "ops.engine",
             "ops.nupow2", "parallel.distributed", "utils.benchmark",
             "tools.mesh_check", "examples.tutorial", "scripts.start_network",
-            "ops.cuda_group", "ops.forms2", "ops.graphs", "tools.kernel_compare"}
+            "ops.cuda_group", "ops.forms2", "ops.graphs", "tools.kernel_compare",
+            "ops.compose2_plain"}
     assert {f"cofhe_tpu_torch.{m}" for m in want} <= set(got["names"]), out.stdout
 
 

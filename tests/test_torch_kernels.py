@@ -14,7 +14,7 @@ versions.
   test_torch_limb_kernels.py; here only their card test.
 
 The wide schedules K2 and K3 compute (rl.mod_topdown28,
-forms2.grouped_rho_loop_wide) are held against the JAX package in
+compose2_plain.grouped_rho_loop_wide) are held against the JAX package in
 test_torch_wide.py.
 
 Tolerance: exact equality of the canonical outputs (d, cg, cu, x mod m,

@@ -1,11 +1,12 @@
 """The wNAF ladder with its state on the card (ops/graphs.py `LadderSteps`,
 `LadderGraphs`): on the CPU, the two step bodies that the graphs capture,
-driven by the digit plan and its counter, against the port's compose2
-loop (`nupow2.wnaf_segment`) and core.qfi.nupow; the plan's bank rows; the
-steps read nothing on the host (the host-read guard of
-test_torch_graphs.py). On a CUDA card only: the ladder graphs at 512 lanes
-against the per-replay ladder and the eager one, their launch counts, two
-threads decrypting on one engine, a NUCOMP CG's ladder.
+driven by the digit plan and its counter, against core.qfi.nupow and the
+host compose; the plan's bank rows; the steps read nothing on the host
+(the host-read guard of test_torch_graphs.py); the CPU's `wnaf_segment`
+runs them eagerly and caches no graphs. On a CUDA card only: the ladder
+graphs at 512 lanes against the per-replay ladder and the eager steps,
+their launch counts, two threads decrypting on one engine, a NUCOMP CG's
+ladder.
 
 Toy fixtures; lanes: powers of h, h itself, f and an identity. Tolerance:
 exact equality of the reduced forms.
@@ -18,7 +19,7 @@ import threading
 import pytest
 import torch
 
-from cofhe_tpu.core.qfi import compose, identity_form, neg, nupow, reduce_form
+from cofhe_tpu.core.qfi import compose, identity_form, neg, nudupl, nupow, reduce_form
 from cofhe_tpu_torch.ops import cuda_group, graphs
 from cofhe_tpu_torch.ops.forms import BForm, bform_from_forms, bform_neg, bform_to_forms
 from cofhe_tpu_torch.ops.graphs import LadderGraphs, LadderSteps, wnaf_plan
@@ -35,6 +36,17 @@ W = 5
 def _lanes(hsm, rng, n_powers: int) -> list:
     base = [nupow(hsm.h, rng.randrange(1, 1 << 40)) for _ in range(n_powers)]
     return base + [hsm.h, hsm.f, identity_form(hsm.Delta)]
+
+
+def _host_segment(bank_forms, r, sched) -> list:
+    """wnaf_segment on the host: per lane, a nudupl a digit, then a compose
+    with bank slot (|d| - 1) / 2, inverted for d < 0."""
+    for d in sched:
+        r = [nudupl(f) for f in r]
+        if d:
+            t = bank_forms[(abs(d) - 1) // 2]
+            r = [compose(f, u if d > 0 else neg(u)) for f, u in zip(r, t)]
+    return r
 
 
 def _exponent(rng, bits: int) -> int:
@@ -62,18 +74,16 @@ def test_ladder_steps_match_wnaf_segment_and_nupow(toy_hsm, monkeypatch, seed, b
     pb = bform_from_forms(base, L, "cpu")
     bank = make_wnaf_bank(pcg, pb, W)
     ident = identity_bform2(pcg, len(base))
-    want = _tuples(bform_to_forms(wnaf_segment(pcg, bank, ident, sched)))
-    assert want == _tuples(nupow(f, e) for f in base)
     steps = LadderSteps(pcg, bank, ident)
-    assert _tuples(bform_to_forms(steps.run(bank, ident, sched))) == want
+    assert _tuples(bform_to_forms(steps.run(bank, ident, sched))) == \
+        _tuples(nupow(f, e) for f in base)
     rows = wnaf_plan(sched, bank.a.shape[0])
     # the counter stopped after the last upload's rows
     assert int(steps.plan[0]) == (len(rows) - 1) % plan_rows + 1
     # the state reloads: a second call from another start
-    r0 = bform_from_forms(base, L, "cpu")
-    got = steps.run(bank, r0, sched[:9])
-    assert _tuples(bform_to_forms(got)) == \
-        _tuples(bform_to_forms(wnaf_segment(pcg, bank, r0, sched[:9])))
+    got = steps.run(bank, pb, sched[:9])
+    odd = [[nupow(f, 2 * i + 1) for f in base] for i in range(bank.a.shape[0])]
+    assert _tuples(bform_to_forms(got)) == _tuples(_host_segment(odd, base, sched[:9]))
 
 
 def test_plan_gives_each_nonzero_digit_its_slot_and_sign(toy_hsm):
@@ -129,18 +139,33 @@ def test_ladder_steps_read_nothing_on_the_host(toy_hsm, monkeypatch):
     assert _tuples(got) == _tuples(want)
 
 
-def test_cpu_wnaf_segment_keeps_its_loop(toy_hsm, monkeypatch):
-    """On the CPU wnaf_segment never takes the ladder graphs, and
-    LadderGraphs refuses a CPU device."""
+def test_cpu_wnaf_segment_runs_the_ladder_steps(toy_hsm, monkeypatch):
+    """On the CPU wnaf_segment goes through run_ladder into the ladder's
+    steps run eagerly, a fresh LadderSteps a call, and caches no
+    LadderGraphs, which refuses a CPU device."""
     _, pcg, L = _cgs(toy_hsm)
+    ran = []
+    run_ladder, run = pcg.compose_graphs.run_ladder, LadderSteps.run
 
-    def refuse(*a, **k):
-        raise AssertionError("the CPU took the ladder graphs")
+    def spy_ladder(*a):
+        ran.append("run_ladder")
+        return run_ladder(*a)
 
-    monkeypatch.setattr(pcg.compose_graphs, "run_ladder", refuse)
-    pb = bform_from_forms(_lanes(toy_hsm, random.Random(41), 1), L, "cpu")
+    def spy_run(steps, *a):
+        ran.append(steps)
+        return run(steps, *a)
+
+    monkeypatch.setattr(pcg.compose_graphs, "run_ladder", spy_ladder)
+    monkeypatch.setattr(LadderSteps, "run", spy_run)
+    base = _lanes(toy_hsm, random.Random(41), 1)
+    pb = bform_from_forms(base, L, "cpu")
     bank = make_wnaf_bank(pcg, pb, W)
-    wnaf_segment(pcg, bank, pb, [1, 0, -3])
+    for _ in range(2):
+        got = wnaf_segment(pcg, bank, pb, [1, 0, -3])
+    assert [x if x == "run_ladder" else type(x) for x in ran] == \
+        ["run_ladder", LadderSteps] * 2 and ran[1] is not ran[3]
+    # from r = f: f^2 * f, then squared, then squared again times f^-3
+    assert _tuples(bform_to_forms(got)) == _tuples(nupow(f, 9) for f in base)
     assert pcg.compose_graphs.ladders == {}
     with pytest.raises(ValueError, match="CUDA graphs"):
         LadderGraphs(pcg, bank, pb)
@@ -167,12 +192,11 @@ def _card(device, lanes=512, seed=51, use_nucomp=False):
     cg = eng.cg
     if use_nucomp:
         cg = CG(cg.disc_bits, cg.delta4, cg.h, cg.h2, use_nucomp=True)
-    ecg = TorchEngine(hsm, device, graphs=False).cg
     rng = random.Random(seed)
     pool = [nupow(hsm.h, rng.randrange(1, 1 << 60)) for _ in range(32)]
     forms = [pool[rng.randrange(32)] for _ in range(lanes - 2)]
     forms += [hsm.f, identity_form(hsm.Delta)]
-    return hsm, eng, cg, ecg, forms, rng
+    return hsm, eng, cg, forms, rng
 
 
 def _kinds(rec) -> dict:
@@ -195,7 +219,7 @@ def _per_replay_segment(cg, bank, r, sched):
 
 @pytest.mark.cuda
 def test_ladder_graphs_equal_the_per_replay_ladder_on_card(cuda_device):
-    hsm, _, cg, ecg, forms, rng = _card(cuda_device)
+    hsm, _, cg, forms, rng = _card(cuda_device)
     e = _exponent(rng, 120)
     sched = [0] * 5 + wnaf_digits(e, W)
     bf = bform_from_forms(forms, cg.L, cuda_device)
@@ -204,7 +228,7 @@ def test_ladder_graphs_equal_the_per_replay_ladder_on_card(cuda_device):
     got = wnaf_segment(cg, bank, ident, sched)
     assert len(cg.compose_graphs.ladders) == 1
     want = _per_replay_segment(cg, bank, ident, sched)
-    eager = wnaf_segment(ecg, bank, ident, sched)
+    eager = LadderSteps(cg, bank, ident).run(bank, ident, sched)
     for x, y, z in zip(got, want, eager):
         assert torch.equal(x, y) and torch.equal(x, z)
     assert _tuples(bform_to_forms(got))[-3:] == _tuples(nupow(f, e) for f in forms[-3:])
@@ -216,7 +240,7 @@ def test_ladder_graphs_equal_the_per_replay_ladder_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_ladder_launches_are_the_step_graphs_keys_times_launches_on_card(cuda_device):
-    _, _, cg, _, forms, rng = _card(cuda_device, lanes=256, seed=52)
+    _, _, cg, forms, rng = _card(cuda_device, lanes=256, seed=52)
     sched = wnaf_digits(_exponent(rng, 90), W)
     bf = bform_from_forms(forms, cg.L, cuda_device)
     bank = make_wnaf_bank(cg, bf, W)
@@ -244,7 +268,7 @@ def test_ladder_launches_are_the_step_graphs_keys_times_launches_on_card(cuda_de
 
 @pytest.mark.cuda
 def test_two_threads_decrypt_on_one_engine_on_card(cuda_device):
-    hsm, eng, _, _, forms, rng = _card(cuda_device, lanes=128, seed=53)
+    hsm, eng, _, forms, rng = _card(cuda_device, lanes=128, seed=53)
     cts = [type("Ct", (), {"c1": f})() for f in forms]
     shares = [rng.getrandbits(100), -rng.getrandbits(90)]
     want = [[f if s >= 0 else reduce_form(neg(f)) for f in
@@ -272,7 +296,7 @@ def test_two_threads_decrypt_on_one_engine_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_nucomp_ladder_runs_on_card(cuda_device):
-    _, _, ncg, ecg, forms, rng = _card(cuda_device, lanes=128, seed=54, use_nucomp=True)
+    _, eng, ncg, forms, rng = _card(cuda_device, lanes=128, seed=54, use_nucomp=True)
     e = _exponent(rng, 60)
     sched = wnaf_digits(e, W)
     bf = bform_from_forms(forms, ncg.L, cuda_device)
@@ -281,6 +305,7 @@ def test_nucomp_ladder_runs_on_card(cuda_device):
     got = wnaf_segment(ncg, bank, ident, sched)
     (lg,) = ncg.compose_graphs.ladders.values()
     assert any(k[0] == "lehmer_euclid" for k in lg.launches[0].per_replay)
-    for x, y in zip(got, wnaf_segment(ecg, bank, ident, sched)):
+    # against the default tail's steps, eager
+    for x, y in zip(got, LadderSteps(eng.cg, bank, ident).run(bank, ident, sched)):
         assert torch.equal(x, y)
     assert _tuples(bform_to_forms(got)) == _tuples(nupow(f, e) for f in forms)

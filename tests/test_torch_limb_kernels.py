@@ -17,6 +17,10 @@ Lm=264, Lsq=136), and the routes of their dispatchers.
   one limb, inactive lanes (floor(x / 2^(16 Lh)) reduced once by d) and
   x with its top limb set.
 
+Every dispatcher built from cuda_group.DISPATCH, one case a kernel,
+routes a CPU tensor to its plain version and any other to its CUDA
+wrapper.
+
 The kernels themselves run only on a card: tests/test_torch_kernels.py
 holds them to these plain versions there. Inputs come from seeded
 Randoms. Tolerance: exact equality.
@@ -34,6 +38,7 @@ from cofhe_tpu.ops import rl as jrl
 from cofhe_tpu_torch.ops import cuda_group
 from cofhe_tpu_torch.ops import limb as lb
 from cofhe_tpu_torch.ops import rl
+from cofhe_tpu_torch.ops.forms import BForm
 
 torch.set_num_threads(1)
 
@@ -223,6 +228,50 @@ def test_dispatchers_route_cpu_to_plain_and_refuse_other_devices(monkeypatch):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert cuda_group.LAUNCHES == before
+
+
+def _routed_args(kernel: str, t) -> tuple:
+    """Positional arguments for `kernel`'s dispatcher with `t` where the
+    dispatch table reads the route: a K6a sum's first term, K6b's F1.a,
+    else the first argument."""
+    if kernel == "canon_sm":
+        return ([(t, None, 1)], 4)
+    if kernel == "compose_prologue":
+        return (BForm(t, t[:, 0], t, t),) * 2
+    return (t, t)
+
+
+@pytest.mark.parametrize("kernel", cuda_group.KERNELS)
+def test_dispatch_table_routes_each_kernel(kernel, monkeypatch):
+    """Each dispatcher built from cuda_group.DISPATCH hands its arguments
+    to <name>_plain when a CPU tensor is in its route position and to
+    <name>_cuda when a meta tensor is, and returns what that gave; both
+    are read from the module at the call."""
+    name = cuda_group.DISPATCH[kernel].name
+    seen = []
+    for side in ("plain", "cuda"):
+        monkeypatch.setattr(cuda_group, f"{name}_{side}",
+                            lambda *a, _side=side, **k: seen.append((_side, a, k)) or _side)
+    for dev, side in (("cpu", "plain"), ("meta", "cuda")):
+        args = _routed_args(kernel, torch.zeros((2, 4), dtype=torch.int32, device=dev)) + (7,)
+        assert getattr(cuda_group, name)(*args, extra=1) == side
+        got_side, got_args, got_kw = seen[-1]
+        assert got_side == side and got_kw == {"extra": 1}
+        assert len(got_args) == len(args) and all(x is y for x, y in zip(got_args, args))
+    assert len(seen) == 2
+
+
+def test_dispatch_table_names_every_kernel_and_its_dispatcher():
+    """The table holds one entry for each kernel that build() compiles, in
+    its order, and each entry's dispatcher is the module attribute of its
+    name, with its plain version and CUDA wrapper beside it."""
+    assert tuple(cuda_group.DISPATCH) == cuda_group.KERNELS
+    assert len({d.name for d in cuda_group.DISPATCH.values()}) == len(cuda_group.KERNELS)
+    for kernel, d in cuda_group.DISPATCH.items():
+        fn = getattr(cuda_group, d.name)
+        assert fn.__name__ == d.name and f"{d.label} `{kernel}`" in fn.__doc__
+        assert callable(getattr(cuda_group, d.name + "_plain"))
+        assert callable(getattr(cuda_group, d.name + "_cuda"))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -3,14 +3,14 @@ cuda_group.reduce_exact (KT on a card, its plain version on the CPU)
 against the JAX package's forms.reduce_batch under jax.jit, and (on a CUDA
 card only) KT against its plain version.
 
-Inputs: K3's plain outputs (forms2.grouped_rho_loop_wide, redundant limbs)
-on the compose operands of tests/test_torch_forms2.py (identities,
-self-composes, an inverse pair, powers of f), and hand-made unreduced
-positive definite forms: b = -a, a = c with b < 0, normal but not reduced
-(a > c), already reduced, and reduced forms translated by quotients as
-large as the width leaves room for (~110 bits at the toy width). The
-kernel's quotients are its own, the reference's are f32 estimates;
-reduced forms are unique, so the tolerance is exact equality.
+Inputs: K3's plain outputs (compose2_plain.grouped_rho_loop_wide,
+redundant limbs) on the compose operands of tests/test_torch_forms2.py
+(identities, self-composes, an inverse pair, powers of f), and hand-made
+unreduced positive definite forms: b = -a, a = c with b < 0, normal but
+not reduced (a > c), already reduced, and reduced forms translated by
+quotients as large as the width leaves room for (~110 bits at the toy
+width). The kernel's quotients are its own, the reference's are f32
+estimates; reduced forms are unique, so the tolerance is exact equality.
 """
 
 import random

@@ -7,8 +7,8 @@ compute) against the JAX package, on the CPU.
   reduction's sec=128 widths (x 264 limbs, m 144). The port departs from
   the JAX digit_est in two places; `test_jax_mod_topdown28_faults_pinned`
   shows the lanes where the JAX loop does not finish and the port does.
-* K3: cofhe_tpu_torch.ops.forms2.grouped_rho_loop_wide followed by the
-  exact tail against the JAX package's CG.reduce2_grouped on the operand
+* K3: cofhe_tpu_torch.ops.compose2_plain.grouped_rho_loop_wide followed
+  by the exact tail against the JAX package's CG.reduce2_grouped on the operand
   classes of tests/test_forms2.py:106-217 (identities, self-composes,
   inverse pairs, powers of f) at k=32, and on a few sec=128 lanes; its
   group count against the 2^12-budget loop (forms2.grouped_rho_loop), and
@@ -32,6 +32,7 @@ import torch
 from cofhe_tpu.core.qfi import identity_form, neg, nupow, reduce_form
 from cofhe_tpu.ops import rl as jrl
 from cofhe_tpu.ops.forms import bform_to_forms as jbform_to_forms
+from cofhe_tpu_torch.ops import compose2_plain as c2p
 from cofhe_tpu_torch.ops import cuda_group, rl
 from cofhe_tpu_torch.ops import forms2 as f2m
 from cofhe_tpu_torch.ops import limb as lb
@@ -187,7 +188,7 @@ def _check_wide_against_jax(hsm, f1, f2):
     it_w = torch.zeros(B, dtype=torch.int64)
     it_o = torch.zeros(B, dtype=torch.int32)
     wide = _tuples(bform_to_forms(pcg._tail(
-        *f2m.grouped_rho_loop_wide(a3, bred, c3, *args, iters=it_w))))
+        *c2p.grouped_rho_loop_wide(a3, bred, c3, *args, iters=it_w))))
     old = _tuples(bform_to_forms(pcg._tail(
         *f2m.grouped_rho_loop(a3, bred, c3, *args, iters=it_o))))
     out = jax.tree.map(np.asarray, jax.jit(jcg.reduce2_grouped)(
@@ -271,11 +272,11 @@ def test_wide_rho_loop_stops_at_red_iters_and_tail_finishes(toy_hsm):
         bform_from_forms(f1, L, "cpu"), bform_from_forms(f2, L, "cpu"))
     args = (a3, b3s[..., None] * b3m, c3, pcg.dD_mant, pcg.dD_top)
     full_it = torch.zeros(16, dtype=torch.int64)
-    full = f2m.grouped_rho_loop_wide(*args, pcg.red_iters, iters=full_it)
+    full = c2p.grouped_rho_loop_wide(*args, pcg.red_iters, iters=full_it)
     cap = int(full_it.max()) // 2
     assert cap >= 1
     cut_it = torch.zeros(16, dtype=torch.int64)
-    cut = f2m.grouped_rho_loop_wide(*args, cap, iters=cut_it)
+    cut = c2p.grouped_rho_loop_wide(*args, cap, iters=cut_it)
     assert torch.equal(cut_it, full_it.clamp(max=cap))
     assert _tuples(bform_to_forms(pcg._tail(*cut))) \
         == _tuples(bform_to_forms(pcg._tail(*full)))
