@@ -27,6 +27,18 @@ same ladder steps eagerly. Results are bit-exact with the host oracle
 (unique reduced forms). Ciphertext batches stack 2n rows, so they run in
 chunks of MAX_BATCH / 2.
 
+One stream an engine. On a card the engine owns a stream (`stream`,
+graphs.owned_stream: non-blocking, priority 0, no other live engine's),
+made at construction; every op runs on it, from the uploads of forms to
+the read-back of the results, which synchronizes that stream alone. The
+stream waits once, at construction, for what the constructor queued on
+the caller's stream (the CG's constants); the ops take and return forms on
+the host, so nothing else of the caller's stream is read. Engines in one
+process (the network's nodes) so queue their work apart, and the card runs
+one node's part-decryption beside another's, which one shared stream
+would run one after the other; ops/graphs.py gives the rules of the CG's
+graphs on it. On the CPU `stream` is None and nothing changes.
+
 With a `mesh` (parallel/sharded.py) the engine runs SPMD, as the JAX
 engine does under a global mesh: every rank calls the same method with the
 same inputs and every rank returns the full result.
@@ -54,6 +66,7 @@ their seconds, summed over chunks, are `last_matmul_phases` (`chain_s`,
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -68,6 +81,7 @@ from ..utils import trace
 from . import limb as lb
 from .forms import BForm, bform_from_forms, bform_neg, bform_to_forms
 from .forms2 import CG, CGCtx
+from .graphs import owned_stream
 from .matmul2 import get_plan, make_chain, make_ladder, make_phase2
 from .nupow2 import (identity_bform2, make_wnaf_bank, nupow_yao2,
                      nwind_for_bits, signed_windows, wnaf_digits,
@@ -83,6 +97,17 @@ MAX_BATCH = 1 << 16
 
 def _bucket(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
+
+
+def _on_stream(op):
+    """An engine op run on the engine's stream (in place on the CPU)."""
+    @functools.wraps(op)
+    def call(self, *args, **kwargs):
+        if self.stream is None:
+            return op(self, *args, **kwargs)
+        with torch.cuda.stream(self.stream):
+            return op(self, *args, **kwargs)
+    return call
 
 
 def resolve_device(device) -> torch.device:
@@ -124,6 +149,11 @@ class TorchEngine:
 
         self.cg = CG.from_arrays(disc_bits, delta4, row(0), row(1), self.device)
         self._identity_form = hsm2k.identity
+        self.stream = None
+        if self.device.type == "cuda":
+            dev = self.cg.device
+            self.stream = self.cg.compose_graphs.stream = owned_stream(self.cg, dev)
+            self.stream.wait_stream(torch.cuda.current_stream(dev))
 
     def _forms_to_bform(self, forms, batch: int, rows=None) -> BForm:
         """Forms padded with identities to `batch` rows (as in the JAX
@@ -187,6 +217,7 @@ class TorchEngine:
         return [(s, min(s + step, n)) for s in range(0, n, step)]
 
     # ------------------------------------------------------------------- ops
+    @_on_stream
     @torch.inference_mode()
     def compose_forms_batch(self, forms1, forms2):
         """Elementwise class-group composition over raw forms."""
@@ -200,6 +231,7 @@ class TorchEngine:
             out.extend(bform_to_forms(self._gather_rows(bf, batch))[:e - s])
         return out
 
+    @_on_stream
     @torch.inference_mode()
     def add_batch(self, cts1, cts2):
         """Elementwise ciphertext addition: (c1 * c1', c2 * c2')."""
@@ -212,6 +244,7 @@ class TorchEngine:
             out.extend(self._bform_to_cts(self._gather_rows(bf, batch), e - s))
         return out
 
+    @_on_stream
     @torch.inference_mode()
     def scal_batch(self, scalars, cts):
         """Elementwise ct^s for non-negative scalars below 2^k. Layout of a
@@ -231,6 +264,7 @@ class TorchEngine:
             out.extend(self._bform_to_cts(self._gather_rows(bf, batch), n))
         return out
 
+    @_on_stream
     @torch.inference_mode()
     def combine_batch(self, cts, pdrs_per_party):
         """final_decrypt over a batch: d = d_0 * (d_1 * ... * d_{t-1})^-1
@@ -272,6 +306,7 @@ class TorchEngine:
                 "lanes": _bucket(min(n, MAX_BATCH)) if n else 0}
 
     @trace.traced("engine.part_decrypt", _part_decrypt_attrs)
+    @_on_stream
     @torch.inference_mode()
     def part_decrypt_batch(self, share: int, cts):
         """d_i = c1^share for every ct (shared exponent, wNAF ladder)."""
@@ -291,6 +326,7 @@ class TorchEngine:
             out = [reduce_form(qneg(f)) for f in out]
         return out
 
+    @_on_stream
     @torch.inference_mode()
     def decrypt_batch(self, sk: int, cts):
         """m = dlog(c2 * (c1^sk)^-1): batched shared-exponent power, one
@@ -300,6 +336,7 @@ class TorchEngine:
         fm = self.compose_forms_batch([ct.c2 for ct in cts], inv)
         return [self.hsm.dlog_in_F(f) for f in fm]
 
+    @_on_stream
     @torch.inference_mode()
     def scal_matmul(self, s_tensor: Tensor, ct_tensor: Tensor,
                     zero_ct: CipherText) -> Tensor:
@@ -409,6 +446,6 @@ class TorchEngine:
         return Tensor(cts, (n, p))
 
     def _synchronize(self) -> None:
-        """Wait for the device's queued work (traced matmul phases only)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for the engine's queued work (traced matmul phases only)."""
+        if self.stream is not None:
+            self.stream.synchronize()

@@ -54,8 +54,9 @@ One `ComposeGraph` per (device, batch shape), held by the CG's
   to the graph's replays (its `cuda_group.GraphLaunches`, from which
   cuda_group.LAUNCHES counts the graph's kernels when read) and, while
   tracing is on, is a `graphs.replay` span (utils/trace.py) with the batch
-  as `lanes` and the captured compose2's fork sites as `branches`, from
-  the input copies to the clones enqueued.
+  as `lanes`, the captured compose2's fork sites as `branches` and the
+  stream it was queued on as `stream` (below), from the input copies to
+  the clones enqueued.
 
 The shared-exponent wNAF ladder (`nupow2.wnaf_segment`: one nudupl a
 digit, then a compose with a bank slot or its inverse where the digit is
@@ -76,18 +77,49 @@ the CPU tests drive the card's ladder code. A ladder call adds to its
 graphs' replays (`LadderGraphs.steps` is their sum; cuda_group.LAUNCHES
 counts their kernels) and, while tracing is on, is one `graphs.ladder`
 span with `lanes`, `steps` (its digits) and `branches` (the CG's compose2
-fork sites, `CG.branches`).
+fork sites, `CG.branches`), on a card also `stream` and `beside` (below).
 
-Captures use thread-local capture mode on a stream of their own, so a
-node runtime's other threads may keep using the card meanwhile; one lock
-a CG orders builds and compose2 replays, and one lock a LadderGraphs its
-ladder calls, from loading the state to the result's clone; both run on
-the caller's current stream. The locks are released once the work and
-its clones are enqueued, so the static buffers are shared safely only
-while every caller of a CG on one device uses one stream (the default
-stream: nothing in the port sets another). A caller on a stream of its
-own could overwrite the static buffers while another stream's replay
-still reads them.
+Streams. Every TorchEngine on a card owns one stream (`owned_stream`,
+made at the engine's construction and held by its CG's ComposeGraphs as
+`stream`), and everything the engine enqueues runs there: the uploads of
+forms, compose2 replays, the wNAF bank, the ladder's step graphs and the
+read-back to the host, which synchronizes that stream alone. So the
+network's nodes, each with its own engine in one process, queue their
+part-decryptions on streams of their own and the card runs them side by
+side; on one shared stream the card would run one node's ladder after the
+other's. An engine's stream is non-blocking (it
+never waits for the legacy default stream), of priority 0, and made by
+the driver outside torch's pool of streams, so that no other live
+engine's stream, no side stream, no capture's stream and no stream a
+library draws from the pool is it; when its CG is collected it goes back
+to the device's free list for the next engine, and none is destroyed.
+The captured graphs keep their own priorities per kernel. What waits on
+what: the engine's stream waits once, at construction, for what the
+constructor queued on the caller's stream (the CG's constants); a
+capture's stream waits for the engine's stream, and the engine's stream
+for the capture; the side streams wait for the stream that forks and are
+joined by it (above). The engine's ops take forms on the host and return
+forms on the host, so nothing of a caller's stream is read. A caller on
+another stream that holds the engine's CG (a tool, a test) is moved onto
+the CG's stream for each replay and ladder call: the CG's stream waits for
+the caller's, the caller's for the result, whose tensors are marked as
+used by the caller's stream. So the static buffers of a CG's graphs have
+exactly one stream, the CG's: one lock a CG orders builds and compose2
+replays, and one lock a LadderGraphs its ladder calls, from loading the
+state to the result's clone, and both are released once the work and its
+clones are enqueued on that stream. A CG built without an engine has no
+stream of its own and runs on its callers' current stream; its buffers
+are shared safely only while those callers use one stream. Captures use
+thread-local capture mode on a stream of their own, so a node runtime's
+other threads keep using the card meanwhile.
+
+A ladder call on a card registers its stream and, when enqueued, the event
+of its last step with the device's ladder registry (`ladders_on`): its
+`graphs.ladder` span carries the stream (`stream`, the stream's handle)
+and how many other streams' ladders were still queued or running on the
+card when it started (`beside`, from a non-blocking query of each one's
+event). `graphs.replay` spans carry `stream` too. On the CPU the spans
+carry neither.
 
 Each graph keeps its private memory pool for the life of its CG, one per
 batch size seen; nothing releases them.
@@ -95,9 +127,11 @@ batch size seen; nothing releases them.
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import threading
 import time
+import weakref
 
 import torch
 
@@ -130,6 +164,96 @@ def side_streams(dev: torch.device) -> tuple:
                                    torch.cuda.Stream(dev, priority=SIDE_PRIORITY),
                                    torch.cuda.Stream(dev, priority=SIDE_PRIORITY))
     return sides
+
+
+# engines' streams by device that no live CG holds: the next engine's
+_FREE_STREAMS: dict = {}
+_STREAMS_LOCK = threading.Lock()
+_CU_STREAM_NON_BLOCKING = 1
+
+
+def _check_cu(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUresult {rc}")
+
+
+def _driver_stream(dev: torch.device) -> int:
+    """The handle of a new non-blocking stream of priority 0 on CUDA device
+    `dev` in its primary context (the one torch's runtime uses), made by the
+    driver (`cuStreamCreateWithPriority`), outside torch's pool. The primary
+    context stays retained: the stream is never destroyed."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    cudev, ctx, stream = ctypes.c_int(), ctypes.c_void_p(), ctypes.c_void_p()
+    _check_cu(cu.cuInit(0), "cuInit")
+    _check_cu(cu.cuDeviceGet(ctypes.byref(cudev), dev.index), "cuDeviceGet")
+    _check_cu(cu.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), cudev),
+              "cuDevicePrimaryCtxRetain")
+    _check_cu(cu.cuCtxPushCurrent_v2(ctx), "cuCtxPushCurrent")
+    try:
+        _check_cu(cu.cuStreamCreateWithPriority(ctypes.byref(stream),
+                                                _CU_STREAM_NON_BLOCKING, 0),
+                  "cuStreamCreateWithPriority")
+    finally:
+        cu.cuCtxPopCurrent_v2(ctypes.byref(ctypes.c_void_p()))
+    return stream.value
+
+
+def owned_stream(owner, dev: torch.device) -> torch.cuda.ExternalStream:
+    """A stream of `owner`'s own on CUDA device `dev` (with its index): an
+    engine's, owned by its CG (module docstring). It is taken from the
+    device's free list, or made by the driver; it goes back to the list when
+    `owner` is collected, so no two live owners share one."""
+    with _STREAMS_LOCK:
+        free = _FREE_STREAMS.setdefault(dev, [])
+        stream = (free.pop() if free else
+                  torch.cuda.ExternalStream(_driver_stream(dev), device=dev))
+    weakref.finalize(owner, _release_stream, dev, stream)
+    return stream
+
+
+def _release_stream(dev: torch.device, stream) -> None:
+    with _STREAMS_LOCK:
+        _FREE_STREAMS.setdefault(dev, []).append(stream)
+
+
+class LadderRegistry:
+    """The ladders of one device by stream: the event of each stream's last
+    ladder step, or None while that stream's ladder is being enqueued."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._last: dict = {}
+
+    def begin(self, stream_id: int) -> int:
+        """Registers a ladder of `stream_id`; returns how many other
+        streams' ladders are still being enqueued, or queued or running on
+        the card (their event's non-blocking `query()` is false)."""
+        with self._lock:
+            beside = sum(1 for sid, done in self._last.items() if sid != stream_id
+                         and (done is None or not done.query()))
+            self._last[stream_id] = None
+        return beside
+
+    def end(self, stream_id: int, done) -> None:
+        """The ladder of `stream_id` is enqueued up to `done`, its last
+        step's event; None (the ladder raised) drops the stream."""
+        with self._lock:
+            if done is None:
+                self._last.pop(stream_id, None)
+            else:
+                self._last[stream_id] = done
+
+
+_LADDERS: dict = {}
+
+
+def ladders_on(dev: torch.device) -> LadderRegistry:
+    """The ladder registry of CUDA device `dev`."""
+    with _STREAMS_LOCK:
+        reg = _LADDERS.get(dev)
+        if reg is None:
+            reg = _LADDERS[dev] = LadderRegistry()
+    return reg
 
 
 def _shape(F: BForm):
@@ -236,8 +360,11 @@ class ComposeGraph:
 
     def run(self, F1: BForm, F2: BForm) -> BForm:
         """compose2(F1, F2) by one replay, as fresh tensors."""
-        with trace.span("graphs.replay", self._span_attrs), \
+        with trace.span("graphs.replay", self._span_attrs) as sp, \
                 torch.cuda.device(self.device):
+            if sp:
+                sp.attrs = {**self._span_attrs, "stream":
+                            torch.cuda.current_stream(self.device).cuda_stream}
             self._load(F1, F2)
             self.graph.replay()
             out = BForm(*(x.clone() for x in self.out))
@@ -322,12 +449,13 @@ class LadderSteps:
         for dst, src in zip(self.r, out):
             dst.copy_(src)
 
-    def run(self, bank: BForm, r: BForm, sched) -> BForm:
-        """wnaf_segment(cg, bank, r, sched) on this state, as fresh tensors."""
+    def run(self, bank: BForm, r: BForm, sched, attrs: dict | None = None) -> BForm:
+        """wnaf_segment(cg, bank, r, sched) on this state, as fresh tensors;
+        `attrs` join the span's."""
         rows = wnaf_plan(sched, self.nslots)
         step_s, step_sc = self.step_s, self.step_sc
         with trace.span("graphs.ladder", {"lanes": self.r.a.shape[0], "steps": len(sched),
-                                          "branches": self.cg.branches}):
+                                          "branches": self.cg.branches, **(attrs or {})}):
             self._load(bank, r)
             at = 0
             for d in sched:
@@ -375,7 +503,15 @@ class LadderGraphs(LadderSteps):
 
     def run(self, bank: BForm, r: BForm, sched) -> BForm:
         with self._lock, torch.cuda.device(self.device):
-            out = super().run(bank, r, sched)
+            stream = torch.cuda.current_stream(self.device)
+            sid = stream.cuda_stream
+            reg = ladders_on(self.device)
+            beside, done = reg.begin(sid), None
+            try:
+                out = super().run(bank, r, sched, {"stream": sid, "beside": beside})
+                done = stream.record_event()
+            finally:
+                reg.end(sid, done)
             nonzero = sum(1 for d in sched if d)
             self._s.launches.replays += len(sched) - nonzero
             self._sc.launches.replays += nonzero
@@ -385,15 +521,39 @@ class LadderGraphs(LadderSteps):
 class ComposeGraphs:
     """A CG's graphs, built at first use: `graphs` maps each (device, batch
     shape) to its ComposeGraph, `ladders` each (device, bank shape) to its
-    LadderGraphs."""
+    LadderGraphs. `stream` is the CG's stream (its engine's; None for a CG
+    without an engine): every replay and ladder call runs there (module
+    docstring)."""
 
     def __init__(self, cg):
         self.cg = cg
         self.graphs: dict = {}
         self.ladders: dict = {}
+        self.stream = None
         self._lock = threading.Lock()
 
+    def _on_stream(self, fn, *args) -> BForm:
+        """fn(*args) on the CG's stream: in place where the caller is on it
+        (the engine's ops), else after a wait for the caller's stream, which
+        then waits for the result and is marked as its user."""
+        s = self.stream
+        if s is None:
+            return fn(*args)
+        cur = torch.cuda.current_stream(s.device)
+        if cur.cuda_stream == s.cuda_stream:
+            return fn(*args)
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            out = fn(*args)
+        cur.wait_stream(s)
+        for x in out:
+            x.record_stream(cur)
+        return out
+
     def run(self, F1: BForm, F2: BForm) -> BForm:
+        return self._on_stream(self._replay, F1, F2)
+
+    def _replay(self, F1: BForm, F2: BForm) -> BForm:
         key = (F1.a.device,) + _shape(F1)[0]
         with self._lock:
             g = self.graphs.get(key)
@@ -408,6 +568,9 @@ class ComposeGraphs:
         nodes of a CPU network run in one process)."""
         if r.a.device.type != "cuda":
             return LadderSteps(self.cg, bank, r).run(bank, r, sched)
+        return self._on_stream(self._ladder, bank, r, sched)
+
+    def _ladder(self, bank: BForm, r: BForm, sched) -> BForm:
         key = (r.a.device,) + tuple(bank.a.shape)
         with self._lock:
             lg = self.ladders.get(key)

@@ -81,7 +81,9 @@ def _arange(L: int, device) -> torch.Tensor:
     key = ("arange", L, str(device))
     t = _CONST.get(key)
     if t is None:
-        t = torch.arange(L, dtype=I32, device=device)
+        # made on the host and copied, a copy that returns once done: every
+        # stream of the device (each engine's) may read it next
+        t = torch.arange(L, dtype=I32).to(device)
         _CONST[key] = t
     return t
 

@@ -25,8 +25,9 @@ There is no exporter.
 The port's spans (PERF.md names the metric that reads each):
 `node.request` (attributes `role` and `service`), `engine.part_decrypt`,
 `engine.recode`, `engine.matmul.chain` / `.ladder` / `.finalize`,
-`graphs.replay` (attributes `lanes` and `branches`) and `graphs.ladder`
-(attributes `lanes`, `steps` and `branches`). `utils/benchmark.PhaseTimer`'s phases
+`graphs.replay` (attributes `lanes`, `branches` and, on a card, `stream`)
+and `graphs.ladder` (attributes `lanes`, `steps` and `branches`, on a card
+also `stream` and `beside`). `utils/benchmark.PhaseTimer`'s phases
 are spans too while tracing is on; on or off, they time their phase and
 mark it in a profiler trace.
 """

@@ -186,7 +186,10 @@ def test_compose_graph_replays_back_to_back_match_the_plain_route_on_card(cuda_d
     assert int(bad) == 0
     (g,) = cg.compose_graphs.graphs.values()
     assert g.branches == cg.branches == 3 and g.replays == 200
-    assert len(spans) == 200 and all(r.attrs == {"lanes": B, "branches": 3} for r in spans)
+    # queued on the CG's stream, its engine's, though called from the default stream
+    sid = cg.compose_graphs.stream.cuda_stream
+    assert len(spans) == 200 and all(r.attrs == {"lanes": B, "branches": 3, "stream": sid}
+                                     for r in spans)
     # the DAG's streams: the device's two side streams, neither the caller's
     _, *sides = graphs.side_streams(d1.a.device)
     assert {s.priority for s in sides} == {graphs.SIDE_PRIORITY}
@@ -251,7 +254,9 @@ def test_ladder_step_graphs_back_to_back_match_the_plain_route_on_card(cuda_devi
     (lg,) = cg.compose_graphs.ladders.values()
     assert cg.branches == 3 and lg.steps == 200
     assert len(spans) == 200
-    assert all(x.attrs == {"lanes": 4 * POOL, "steps": 1, "branches": 3} for x in spans)
+    sid = cg.compose_graphs.stream.cuda_stream  # no other stream's ladder runs
+    assert all(x.attrs == {"lanes": 4 * POOL, "steps": 1, "branches": 3, "stream": sid,
+                           "beside": 0} for x in spans)
 
 
 @pytest.mark.cuda
