@@ -119,9 +119,32 @@ def _replays(engines) -> int:
                for g in e.cg.compose_graphs.graphs.values())
 
 
-def _sync(torch, device: str) -> None:
-    if device == "cuda":
-        torch.cuda.synchronize()
+def cell_cards(cfg: dict) -> list:
+    """The sorted distinct CUDA indices the configuration's devices name:
+    "cuda" is the current card, 0; "cpu" and "host" name none."""
+    if cfg["deployment"] == "local":
+        devices = [cfg["device"]]
+    else:
+        devices = [*cfg["cofhe_devices"], cfg["compute_device"], cfg["client_device"],
+                   cfg["setup_device"]]
+    cards = set()
+    for d in devices:
+        if d in ("cpu", "host"):
+            continue
+        kind, _, index = d.partition(":")
+        if kind != "cuda" or not (index or "0").isdigit():
+            raise ValueError(f"device {d!r} is none of cpu, host, cuda, cuda:<index>")
+        cards.add(int(index or 0))
+    return sorted(cards)
+
+
+def cards_missing(cell: str, need: int, have: int) -> str:
+    return f"portbench: {cell} needs {need} CUDA card(s); this machine has {have}"
+
+
+def _sync(torch, cards) -> None:
+    for c in cards:
+        torch.cuda.synchronize(c)
 
 
 def _check_widths(dep, cfg: dict) -> None:
@@ -133,11 +156,13 @@ def _check_widths(dep, cfg: dict) -> None:
 
 
 def run_cell(root: str, cell: str, seed: int, seconds: float, trace: bool,
-             t_start: float, chips: int = 1, control: bool = False):
+             t_start: float, control: bool = False):
     """One run of `cell`: (result line, notes: the counts the comparison
     checked, set-up seconds by piece, every request's latency). `t_start`
     is the host clock at process start. The configuration names the
-    device (the CPU tests' toy configurations name "cpu"). With `control`,
+    devices (the CPU tests' toy configurations name "cpu"); a cell whose
+    configuration names another count of cards than its `chips`, or a card
+    this machine lacks, is refused before anything is built. With `control`,
     the result also holds under "control" the comparison of the control's
     outputs (the reference in the next lower precision, in the program's
     place) at the same requests."""
@@ -147,10 +172,17 @@ def run_cell(root: str, cell: str, seed: int, seconds: float, trace: bool,
     wl, cfg_entry = find_cell(bench, cell)
     cfg = load_json(root, cfg_entry["file"])
     traffic = load_json(root, os.path.join("portbench", "traffic", f"{wl['traffic']}.json"))
-    device = cfg.get("device") or cfg["compute_device"]
+    cards = cell_cards(cfg)
+    if cards and len(cards) != wl["chips"]:
+        raise ValueError(f"{cell} asks for {wl['chips']} chip(s); its configuration "
+                         f"names {len(cards)} card(s), {cards}")
+    if cards and cards[-1] >= torch.cuda.device_count():
+        raise RuntimeError(cards_missing(cell, cards[-1] + 1, torch.cuda.device_count()))
     group = reference.CLGroup(int(cfg["p"], 16), cfg["k"])
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    if cards:
+        torch.cuda.init()  # a card's memory statistics exist once CUDA is initialized
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
 
     marks = [("imports", time.perf_counter())]
     dep = deploy.build(cfg, seed, group.secretkey_bound)
@@ -161,7 +193,7 @@ def run_cell(root: str, cell: str, seed: int, seconds: float, trace: bool,
         marks.append(("inputs encrypted", time.perf_counter()))
         for w in range(traffic.get("warmup_requests", 1)):
             op.request(-1 - w, keep=False)
-        _sync(torch, device)
+        _sync(torch, cards)
         # set-up's objects out of the collector's way: the window's collections
         # then scan what the requests allocate, the same in every run
         gc.collect()
@@ -171,13 +203,13 @@ def run_cell(root: str, cell: str, seed: int, seconds: float, trace: bool,
                       config=cfg, traffic=traffic, widths=cfg["widths"],
                       roofline=roofline)
         if trace:
-            reqs, failed, window_s = _traced_window(torch, dep, op, traffic, ctx, device)
+            reqs, failed, window_s = _traced_window(torch, dep, op, traffic, ctx, cards)
         else:
             reqs, failed, window_s = window(op, seconds)
         leaked = forbidden_modules()
         if leaked:
             raise RuntimeError(f"modules of JAX or the JAX package loaded: {leaked}")
-        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        peaks = {c: torch.cuda.max_memory_allocated(c) for c in cards}
     finally:
         dep.close()
         gc.unfreeze()
@@ -195,19 +227,23 @@ def run_cell(root: str, cell: str, seed: int, seconds: float, trace: bool,
         value = load_reader(root, name).read(ctx)
         if value is not None:
             metrics[name] = {"value": value, "unit": units[name]}
-    dev = {"platform": "gpu" if device == "cuda" else device,
-           "kind": torch.cuda.get_device_name(0) if device == "cuda" else device,
-           "count": chips, "memory_peak_bytes": peak}
+    dev = {"platform": "gpu" if cards else "cpu",
+           "kind": torch.cuda.get_device_name(cards[0]) if cards else "cpu",
+           "count": wl["chips"], "memory_peak_bytes": max(peaks.values(), default=0)}
     result = {"correct": correct, "attempted": len(reqs) + failed, "failed": failed,
               "metrics": metrics, "device": dev}
     if ctx.trace is not None:
-        dev.update(busy_s=ctx.trace.busy_s, window_s=window_s)
+        # the seconds a card ran something, averaged over the cell's cards
+        busy = [ctx.trace.busy_by_card[c] for c in cards]
+        dev.update(busy_s=sum(busy) / len(busy), window_s=window_s)
         result["breakdown"] = {"device_ops": ctx.trace.device_ops(),
                                "idle_gaps": ctx.trace.idle_gaps()}
     notes = {"checked": {k: v for k, v in compared.items() if k not in limits},
              "setup_pieces_s": {label: at - prev for (label, at), prev in
                                 zip(marks, [t_start] + [at for _, at in marks])},
-             "latencies_s": ctx.latencies, "check_s": check_s}
+             "latencies_s": ctx.latencies, "check_s": check_s,
+             "memory_peak_bytes_by_card": peaks,
+             "busy_s_by_card": ctx.trace.busy_by_card if ctx.trace else None}
     result["checked"] = notes["checked"]
     if control:
         result["control"] = {k: v[0] for k, v in op.compare(op.control()).items()
@@ -216,7 +252,7 @@ def run_cell(root: str, cell: str, seed: int, seconds: float, trace: bool,
     return result, notes
 
 
-def _traced_window(torch, dep, op, traffic: dict, ctx: Context, device: str):
+def _traced_window(torch, dep, op, traffic: dict, ctx: Context, cards):
     """`trace_requests` requests under torch.profiler with the spans on:
     the deployment's hooks, each request, each compose2 graph replay by
     its lanes; per request the graph replays and the matmul's phases."""
@@ -244,7 +280,7 @@ def _traced_window(torch, dep, op, traffic: dict, ctx: Context, device: str):
         before[0] = now
 
     acts = [torch.profiler.ProfilerActivity.CPU]
-    if device == "cuda":
+    if cards:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     reqs, failed = [], 0
     try:
@@ -260,12 +296,12 @@ def _traced_window(torch, dep, op, traffic: dict, ctx: Context, device: str):
                     on_request()
                 else:
                     failed += 1
-            _sync(torch, device)
+            _sync(torch, cards)
             window_s = time.perf_counter() - t_win
     finally:
         graphs.ComposeGraph.run = orig_run
         spans.restore()
     ctx.spans = spans.intervals
-    if device == "cuda":
-        ctx.trace = DeviceTrace(prof, window_s)
+    if cards:
+        ctx.trace = DeviceTrace.from_profiler(prof, window_s, cards)
     return reqs, failed, window_s

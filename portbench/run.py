@@ -48,19 +48,22 @@ def main(argv=None) -> int:
 
     bench = harness.load_json(ROOT, "BENCHMARK.json")
     wl, _ = harness.find_cell(bench, args.workload)
-    if not torch.cuda.is_available() or torch.cuda.device_count() < wl["chips"]:
-        print(f"portbench: {args.workload} needs {wl['chips']} CUDA card(s); this "
-              f"machine has {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
-              file=sys.stderr)
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < wl["chips"]:
+        print(harness.cards_missing(args.workload, wl["chips"], have), file=sys.stderr)
         return 2
     torch.set_num_threads(1)
     result, notes = harness.run_cell(ROOT, args.workload, args.seed, args.seconds,
-                                     bool(args.trace), T_START, chips=wl["chips"])
+                                     bool(args.trace), T_START)
     lat = sorted(notes["latencies_s"])
-    print(f"portbench: set-up seconds by piece {notes['setup_pieces_s']}; "
-          f"{len(lat)} requests, latency s min {lat[0]:.4f} median {lat[len(lat) // 2]:.4f} "
-          f"max {lat[-1]:.4f}" if lat else "no request completed", file=sys.stderr)
+    print(f"portbench: set-up seconds by piece {notes['setup_pieces_s']}; memory peak "
+          f"bytes by card {notes['memory_peak_bytes_by_card']}", file=sys.stderr)
+    print(f"portbench: {len(lat)} requests, latency s min {lat[0]:.4f} median "
+          f"{lat[len(lat) // 2]:.4f} max {lat[-1]:.4f}" if lat else
+          "portbench: no request completed", file=sys.stderr)
     if args.trace:
+        print(f"portbench: device busy s by card {notes['busy_s_by_card']} of a "
+              f"{result['device']['window_s']:.4f} s window", file=sys.stderr)
         print(f"portbench: peaks 3.35 TB/s, int32 16.75 Tops/s, int8 1979 Tops/s; "
               f"card {harness.card_power()}", file=sys.stderr)
     print(f"portbench: checked {notes['checked']} in {notes['check_s']:.1f} s after the window",

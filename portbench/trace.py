@@ -3,15 +3,14 @@
 `Spans` wraps program functions from the benchmark's side: each call
 records (start, end) on the host clock under a label, and opens a
 `torch.profiler.record_function` range "portbench.<label>" so the device
-trace can be cut by it. With `sync`, the card is synchronized before the
-clock starts and before it stops, so a span holds the work of its call
-and not what was queued before it.
+trace can be cut by it.
 
 `DeviceTrace` reads the profiler's events after the traced window: the
-union of device activity (busy seconds), device time by kernel name, the
-longest idle gaps labelled by the innermost benchmark range open on the
-host at the time, and the device time of the graph launches made inside
-each "portbench.compose2@<lanes>" range.
+union of device activity on any card (busy seconds) and each card's own,
+device time by kernel name, the longest idle gaps of each card labelled
+by the innermost benchmark range open on the host at the time, and the
+device time of the graph launches made inside each
+"portbench.compose2@<lanes>" range.
 """
 
 from __future__ import annotations
@@ -20,6 +19,9 @@ import bisect
 import contextlib
 import functools
 import time
+from typing import NamedTuple
+
+from .spans import merged
 
 PREFIX = "portbench."
 
@@ -34,20 +36,15 @@ class Spans:
         self.intervals.setdefault(label, []).append((t0, t1))
 
     @contextlib.contextmanager
-    def span(self, label: str, sync: bool = False):
-        torch = self.torch
-        with torch.profiler.record_function(PREFIX + label):
-            if sync:
-                torch.cuda.synchronize()
+    def span(self, label: str):
+        with self.torch.profiler.record_function(PREFIX + label):
             t0 = time.perf_counter()
             try:
                 yield
             finally:
-                if sync:
-                    torch.cuda.synchronize()
                 self.add(label, t0, time.perf_counter())
 
-    def wrap(self, obj, attr: str, label: str, sync: bool = False) -> None:
+    def wrap(self, obj, attr: str, label: str) -> None:
         """Replace obj.attr by a wrapper recording a span a call (undone by
         `restore`)."""
         orig = getattr(obj, attr)
@@ -55,7 +52,7 @@ class Spans:
 
         @functools.wraps(orig)
         def wrapper(*a, **kw):
-            with self.span(label, sync):
+            with self.span(label):
                 return orig(*a, **kw)
 
         setattr(obj, attr, wrapper)
@@ -90,40 +87,68 @@ def share_pct(intervals, requests) -> float | None:
     return 100.0 * inside / sum(b - a for a, b in requests)
 
 
+class Event(NamedTuple):
+    """One profiler event as `DeviceTrace` reads it: an operation on card
+    `card` (its CUDA index), or, with `card` None, an event on host thread
+    `thread` (a benchmark range, a graph launch). `correlation` ties a
+    graph launch to the operations it ran."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    card: int | None = None
+    thread: int = 0
+    correlation: int = 0
+
+
 class DeviceTrace:
-    """The device side of one torch.profiler run; `window_s` is the host
-    time the run covered."""
+    """The device side of one traced run, from its events; `window_s` is
+    the host time the run covered, `cards` the CUDA indices the cell uses
+    (a card with no operation reads idle throughout)."""
 
-    def __init__(self, prof, window_s: float):
-        from torch.autograd import DeviceType
-
+    def __init__(self, events, window_s: float, cards=()):
         self.window_s = window_s
-        events = prof.profiler.kineto_results.events()
-        dev, ranges, launches = [], {}, []
+        dev, on_card, ranges, launches = [], {}, {}, []
         for e in events:
-            name = e.name()
-            if e.device_type() == DeviceType.CUDA:
-                if not name.startswith(PREFIX) and e.duration_ns() > 0:
-                    dev.append((e.start_ns(), e.end_ns(), name,
-                                e.correlation_id() or e.linked_correlation_id()))
-            elif name.startswith(PREFIX):
-                ranges.setdefault(e.start_thread_id(), []).append(
-                    (e.start_ns(), e.end_ns(), name[len(PREFIX):]))
-            elif name == "cudaGraphLaunch":
-                launches.append((e.start_ns(), e.start_thread_id(), e.correlation_id()))
+            if e.card is not None:
+                if not e.name.startswith(PREFIX) and e.end_ns > e.start_ns:
+                    dev.append((e.start_ns, e.end_ns, e.name, e.correlation))
+                    on_card.setdefault(e.card, []).append((e.start_ns, e.end_ns))
+            elif e.name.startswith(PREFIX):
+                ranges.setdefault(e.thread, []).append(
+                    (e.start_ns, e.end_ns, e.name[len(PREFIX):]))
+            elif e.name == "cudaGraphLaunch":
+                launches.append((e.start_ns, e.thread, e.correlation))
         dev.sort()
         self.dev = dev
         self.ranges = {t: sorted(r) for t, r in ranges.items()}
         self._starts = {t: [x[0] for x in r] for t, r in self.ranges.items()}
-        merged = []
-        for a, b, _, _ in dev:
-            if merged and a <= merged[-1][1]:
-                merged[-1][1] = max(merged[-1][1], b)
-            else:
-                merged.append([a, b])
-        self.busy = merged
-        self.busy_s = sum(b - a for a, b in merged) / 1e9
+        self.busy = merged((a, b) for a, b, _, _ in dev)
+        self.busy_s = sum(b - a for a, b in self.busy) / 1e9
+        self.cards = sorted(set(cards) | set(on_card))
+        self.busy_on = {c: merged(on_card.get(c, ())) for c in self.cards}
+        self.busy_by_card = {c: sum(b - a for a, b in m) / 1e9
+                             for c, m in self.busy_on.items()}
         self.graph_ns = self._graph_time(launches)
+
+    @classmethod
+    def from_profiler(cls, prof, window_s: float, cards=()):
+        """The trace of a finished `torch.profiler.profile` run."""
+        from torch.autograd import DeviceType
+
+        events = []
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                events.append(Event(e.name(), e.start_ns(), e.end_ns(), card=e.device_index(),
+                                    correlation=e.correlation_id() or e.linked_correlation_id()))
+            else:
+                events.append(Event(e.name(), e.start_ns(), e.end_ns(),
+                                    thread=e.start_thread_id(), correlation=e.correlation_id()))
+        return cls(events, window_s, cards)
+
+    def idle_pct(self, card: int) -> float:
+        """Share of the window in which card `card` ran nothing."""
+        return 100.0 * (1.0 - self.busy_by_card.get(card, 0.0) / self.window_s)
 
     def _innermost(self, thread, t: int) -> str | None:
         """The range of `thread` open at t that started last (ranges nest)."""
@@ -162,14 +187,18 @@ class DeviceTrace:
         return [[k, v / 1e9] for k, v in sorted(tot.items(), key=lambda kv: -kv[1])[:top]]
 
     def idle_gaps(self, top: int = 10) -> list:
-        """The longest gaps between device activity, each named by the
-        innermost benchmark range open on any host thread at its middle."""
-        gaps = [(b2 - a1, a1, b2) for (_, a1), (b2, _) in zip(self.busy, self.busy[1:])]
+        """The longest gaps between device activity on a card, each named by
+        the innermost benchmark range open on any host thread at its middle,
+        and by the card where the trace has more than one."""
+        gaps = [(b2 - a1, a1, b2, c) for c, busy in self.busy_on.items()
+                for (_, a1), (b2, _) in zip(busy, busy[1:])]
         out = []
-        for length, a, b in sorted(gaps, reverse=True)[:top]:
+        for length, a, b, card in sorted(gaps, reverse=True)[:top]:
             mid = (a + b) // 2
             labels = [self._innermost(t, mid) for t in self.ranges]
             labels = [x for x in labels if x]
-            out.append([" | ".join(sorted(set(labels))) or "no benchmark range",
-                        length / 1e9])
+            label = " | ".join(sorted(set(labels))) or "no benchmark range"
+            if len(self.cards) > 1:
+                label = f"cuda:{card}: {label}"
+            out.append([label, length / 1e9])
         return out
